@@ -1,0 +1,150 @@
+"""The port's MipCostEngine (plain path, on the CPU) against the JAX
+MipCostEngine, on whole tensors: every CU including the out-of-frame ones
+(both fill them from edge replication), plus ``valid``, bit for bit.
+
+Inputs are made with numpy from a seed and handed to both engines.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from vvc_mip_gpu_tpu.models import cost_engine as jce
+from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+from vvc_mip_gpu_tpu_torch.models import cost_engine as tce
+from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
+
+FIELDS = ("sad", "satd", "min_sad_had", "valid")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes at
+    once, and idle OpenMP threads would spin on cores the JAX tests use."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _assert_costs_equal(exp, got, what):
+    for field in FIELDS:
+        e, g = getattr(exp, field), getattr(got, field)
+        if e is None:
+            assert g is None, f"{what}: {field} should be None"
+            continue
+        e = np.asarray(e).astype(np.int64)
+        g = g.numpy().astype(np.int64)
+        assert e.shape == g.shape, f"{what} {field}: {e.shape} vs {g.shape}"
+        bad = e != g
+        assert not bad.any(), (f"{what} {field}: {bad.sum()} mismatches at "
+                               f"{np.argwhere(bad)[:5]}")
+
+
+@functools.cache
+def _jax_engine(width, height, max_performance):
+    return jce.MipCostEngine(width, height, max_performance=max_performance)
+
+
+def _frames(width, height, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 1024, (height, width)).astype(np.int32),
+            synthetic_frames(1, width, height, seed=seed)[0].astype(np.int32),
+            rng.integers(0, 1024, (height, width)).astype(np.int32))
+
+
+@pytest.mark.parametrize("max_performance", [True, False])
+@pytest.mark.parametrize("size", [(128, 128), (608, 192)])
+def test_engine_matches_jax(size, max_performance):
+    """Random and smooth content in the original-samples regime, and a
+    distinct reference frame (alternative-samples regime)."""
+    width, height = size
+    noise, smooth, ref = _frames(width, height, seed=width + height)
+    jeng = _jax_engine(width, height, max_performance)
+    teng = tce.MipCostEngine(width, height, max_performance=max_performance,
+                             device="cpu")
+    # The JAX side's two-argument call with ref == frame is the same
+    # computation as its one-argument call (one compile instead of two).
+    for name, frame in (("noise", noise), ("smooth", smooth)):
+        _assert_costs_equal(jeng(frame, frame), teng(frame), name)
+    _assert_costs_equal(jeng(smooth, ref), teng(smooth, ref), "distinct ref")
+
+
+def test_compute_ext_inner_slab_with_halo():
+    """compute_ext on a slab that is not the frame's top (is_top=False):
+    the top boundaries of the first CU row and the frame-left corner rule
+    come from the halo row."""
+    width, height = 608, 192
+    frame, _, ref = _frames(width, height, seed=7)
+    halo = np.random.default_rng(8).integers(0, 1024, width).astype(np.int32)
+    jfn = jax.jit(jce.compute_ext,
+                  static_argnames=("width", "height", "max_performance"))
+    exp = jfn(frame, ref, halo, False, width=width, height=height)
+    got = tce.compute_ext(*(torch.from_numpy(a[None])
+                            for a in (frame, ref, halo)),
+                          False, width, height)
+    for e, g, name in zip(exp, got, ("sad", "satd", "min_sad_had")):
+        np.testing.assert_array_equal(np.asarray(e), g[0].numpy(), name)
+
+
+def test_compute_batch_matches_jax():
+    """B = 2 in one call against the JAX engine frame by frame (its
+    compiled one-frame function, shared with test_engine_matches_jax)."""
+    width, height = 128, 128
+    noise, smooth, _ = _frames(width, height, seed=3)
+    jeng = _jax_engine(width, height, True)
+    got = tce.MipCostEngine(width, height, max_performance=True,
+                            device="cpu").compute_batch(
+                                np.stack([noise, smooth]))
+    for b, frame in enumerate((noise, smooth)):
+        exp = jeng(frame, frame)
+        _assert_costs_equal(exp, type(got)(
+            *(None if t is None else t[b]
+              for t in (got.sad, got.satd, got.min_sad_had, got.valid))),
+            f"batch frame {b}")
+
+
+def test_compute_blocks_flatten_to_compute_ext():
+    width, height = 128, 128
+    frame = torch.from_numpy(_frames(width, height, seed=4)[0][None])
+    halo = frame[:, 0]
+    sad_b, satd_b, msh_b = tce.compute_blocks(frame, frame, halo, True,
+                                              width, height)
+    sad, satd, msh = tce.compute_ext(frame, frame, halo, True, width, height)
+    for blocks, flat in ((sad_b, sad), (satd_b, satd), (msh_b, msh)):
+        assert torch.equal(tce._flatten_strided(blocks), flat)
+    # a class subset fills exactly its groups' blocks
+    _, _, sub = tce.compute_blocks(frame, frame, halo, True, width, height,
+                                   max_performance=True, classes=(0, 16))
+    assert sorted(sub) == [0, 46]
+    assert torch.equal(sub[46], msh_b[46])
+
+
+def test_engine_matches_jax_pallas_interpret():
+    """Against the Pallas kernels themselves: the JAX engine with its
+    kernels in interpret mode (as tests/test_engine_vs_golden.py runs
+    them), whole tensors."""
+    width, height = 128, 128
+    frame = _frames(width, height, seed=5)[0]
+    old = jce._PALLAS_OVERRIDE, jce._PALLAS_INTERPRET
+    jce._PALLAS_OVERRIDE, jce._PALLAS_INTERPRET = True, True
+    try:
+        exp = jce.MipCostEngine(width, height, max_performance=True)(frame)
+        exp_msh = np.asarray(exp.min_sad_had)
+    finally:
+        jce._PALLAS_OVERRIDE, jce._PALLAS_INTERPRET = old
+    got = tce.MipCostEngine(width, height, max_performance=True,
+                            device="cpu")(frame)
+    np.testing.assert_array_equal(exp_msh, got.min_sad_had.numpy())
+
+
+def test_cpu_path_launches_no_kernel():
+    for k in KERNELS:
+        k.launches = 0
+    eng = tce.MipCostEngine(128, 128, device="cpu")
+    eng.compute_batch(np.zeros((2, 128, 128), np.int32))
+    assert [k.launches for k in KERNELS] == [0, 0, 0]

@@ -1,0 +1,85 @@
+"""The CUDA cost kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they need an NVIDIA card and nvcc, and skip elsewhere.
+Run them on the card with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+(``--noconftest``: the suite's conftest imports JAX, which the card's
+machine need not have; this file imports only torch and the port.)
+Every class's kernel instantiation is held against its plain version on
+the same CUDA tensors, bit for bit, at 256x128 and at 608x192 (partial
+right and bottom CTUs), in both output regimes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vvc_mip_gpu_tpu_torch.constants import num_ctus
+from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+from vvc_mip_gpu_tpu_torch.models import cost_engine as tce
+from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
+
+pytestmark = [
+    pytest.mark.cuda,
+    # a string condition: evaluated when each test runs, not at import
+    pytest.mark.skipif("not torch.cuda.is_available()",
+                       reason="needs a CUDA device"),
+]
+
+
+def _inputs(width, height, seed):
+    rng = np.random.default_rng(seed)
+    frames = np.stack([rng.integers(0, 1024, (height, width)),
+                       synthetic_frames(1, width, height, seed=seed)[0]])
+    ref = rng.integers(0, 1024, (2, height, width))
+    halo = rng.integers(0, 1024, (2, width))
+    return (torch.from_numpy(a.astype(np.int16)).cuda()
+            for a in (frames, ref, halo))
+
+
+@pytest.mark.parametrize("max_performance", [True, False])
+@pytest.mark.parametrize("size", [(256, 128), (608, 192)])
+@pytest.mark.parametrize("ci", range(17))
+def test_kernel_matches_plain(ci, size, max_performance):
+    width, height = size
+    frames, ref, halo = _inputs(width, height, seed=ci)
+    run = tce.class_runs(width, height, frames.device)[ci]
+    shape = (2, num_ctus(width, height)[2], tce.PER_CTU)
+    n_out = 1 if max_performance else 2
+    # original samples at the frame top; distinct ref and a halo row below
+    for refs, is_top in ((frames, True), (ref, False)):
+        outs = [[torch.full(shape, -1, dtype=torch.int32, device="cuda")
+                 for _ in range(n_out)] for _ in range(2)]
+        args = (frames, refs, halo, is_top, run.plan, run.table, run.weights)
+        run.kernel(*args, outs[0])
+        run.kernel.plain(*args, outs[1])
+        torch.cuda.synchronize()
+        for k, p in zip(*outs):
+            assert torch.equal(k, p), (
+                f"{run.plan.shape.width}x{run.plan.shape.height}: "
+                f"{int((k != p).sum())} entries differ")
+
+
+def test_engine_inputs_on_the_card():
+    """uint16 frames from the host (synthetic_frames' type) give the same
+    costs as int32 frames; an empty batch gives empty costs."""
+    engine = tce.MipCostEngine(128, 128, max_performance=True)
+    frames = synthetic_frames(2, 128, 128, seed=1)
+    got = engine.compute_batch(frames).min_sad_had
+    want = engine.compute_batch(frames.astype(np.int32)).min_sad_had
+    assert got.device.type == "cuda" and torch.equal(got, want)
+    empty = engine.compute_batch(np.zeros((0, 128, 128), np.int32))
+    assert tuple(empty.min_sad_had.shape) == (0, 1, tce.PER_CTU)
+
+
+def test_compute_batch_launches_each_kernel_per_class():
+    width, height = 256, 128
+    frames = next(iter(_inputs(width, height, seed=0)))
+    engine = tce.MipCostEngine(width, height, max_performance=True)
+    for k in KERNELS:
+        k.launches = 0
+    engine.compute_batch(frames)
+    torch.cuda.synchronize()
+    assert [k.launches for k in KERNELS] == [1, 7, 9]

@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of the VVC Matrix-based Intra Prediction (MIP) cost
+engine, for one NVIDIA Hopper card.
+
+The exhaustive MIP mode search over every candidate CU size/position of
+every CTU of a frame, producing per-(CU, mode) SAD / SATD / minSadHad cost
+tensors in the reference strided layout.  Each shape class runs through a
+hand-written CUDA kernel (csrc/mip_cost.cu) on the GPU, or through the
+kernels' plain PyTorch versions on the CPU.
+"""
+
+__version__ = "0.1.0"
