@@ -5,23 +5,46 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the cost kernels from csrc/, holds every kernel instantiation
-against its plain PyTorch version on the card (bit-exact: every value is an
-integer), drives the port's main path — MipCostEngine(1920, 1080,
-max_performance=True).compute_batch over 16 distinct uniform-random frames
-resident on the card — checks that every kernel launched in that run,
-times it, and prints one JSON line of per-kernel numbers, the card's
-name and power limit, and last {"ok": true, "device": {...}}.  Any
-mismatch, CUDA error or missing launch exits non-zero with no result.
+It builds every kernel library from csrc/ (one nvcc per source, started
+together), holds every kernel against its plain PyTorch version on the card
+(bit-exact: every value is an integer), and drives each of the port's paths
+through the entry points a user calls, all at 1920x1080:
+
+- the main path, MipCostEngine(1920, 1080,
+  max_performance=True).compute_batch over 16 distinct uniform-random
+  frames resident on the card, timed;
+- (a) the reduced-prediction kernel against its plain version on the
+  reduced boundaries of every class of a noise and a smooth frame, timed
+  beside its bound and a cuBLAS fp32 product of the same shapes;
+- (b) the 8 filters x every KernelIdx on the card against the CPU, timed
+  at batch 16;
+- (c) the filtered regime with the full report (SAD, SATD, minSadHad)
+  over 16 frames, against the plain path on frames 0-1, timed;
+- (d) the inspect readback on the card (through the reduced-prediction
+  kernel) against the host's, for groups of each SizeId, edge CTUs and a
+  filtered reference;
+- (e) the port's CLI in-process (filtered, full report, target CTU, two
+  frames) into a temporary directory, its CSVs checked against the card's
+  costs and deleted.
+
+Every path runs with the launch counters set to 0 just before it and read
+just after, and fails unless each of its kernels launched.  It prints one
+JSON line of per-kernel numbers, the card's name and power limit, and last
+{"ok": true, "device": {...}}.  Any mismatch, CUDA error or missing
+launch exits non-zero with no result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import filecmp
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -34,6 +57,9 @@ TIMED_ITERS = 10
 INT32_OPS_PER_CLK_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_cost.cu"
+PRED_SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_pred.cu"
+FILTER = ("filterFrame_2d_int_quarterCtu", 2)  # the filtered-regime phases
+CLI_TARGET_CTU = 5
 
 
 def smi(query: str) -> str:
@@ -57,6 +83,13 @@ def class_ops(h: int, w: int, r: int, two_m: int, n_cu: int) -> int:
     return n_cu * two_m * ops_mode
 
 
+def csv_shape(path) -> tuple[str, int]:
+    """(header, data rows) of a CSV file."""
+    with open(path) as f:
+        header = f.readline().rstrip("\n")
+    return header, int(np.count_nonzero(np.fromfile(path, np.uint8) == 10)) - 1
+
+
 class Timer:
     """Mean device milliseconds of ``fn`` over ``iters`` launches."""
 
@@ -73,6 +106,303 @@ class Timer:
         self.ms = start.elapsed_time(end) / iters
 
 
+def pred_inputs(frame16: torch.Tensor) -> dict:
+    """{SizeId: (red_t, red_l)}: the reduced boundaries of every CU of
+    every class of one [H, W] int16 frame on the card, int32 [BS, nCU]."""
+    from vvc_mip_gpu_tpu_torch.ops import mip_ops as ops
+    from vvc_mip_gpu_tpu_torch.ops.geometry import class_plans, padded_extent
+
+    hp, wp = padded_extent(MAIN_W, MAIN_H)
+    ref_pad = ops.pad_reference(frame16, frame16[0], hp, wp)
+    parts: dict[int, tuple[list, list]] = {0: ([], []), 1: ([], []),
+                                           2: ([], [])}
+    for cplan in class_plans(MAIN_W, MAIN_H):
+        sid, bs = cplan.shape.size_id, cplan.shape.boundary_size
+        for gp in cplan.groups:
+            ref_t, ref_l = ops.gather_boundaries(ref_pad, gp, True)
+            parts[sid][0].append(ops.reduce_boundary(ref_t, bs))
+            parts[sid][1].append(ops.reduce_boundary(ref_l, bs))
+    return {sid: tuple(torch.cat(p, 1).to(torch.int32).contiguous()
+                       for p in pair) for sid, pair in parts.items()}
+
+
+def phase_pred(noise16, smooth16, int_rate: float, failures) -> dict:
+    """(a) mip_reduced_pred against its plain version on the card, every
+    SizeId, a noise and a smooth frame; then its times over one frame's
+    CUs beside the bound and a cuBLAS fp32 product of the same shapes."""
+    from vvc_mip_gpu_tpu_torch.mip_weights import matrices, weights_from_numpy
+    from vvc_mip_gpu_tpu_torch.ops.pred import mip_reduced_pred as kernel
+
+    max_err = 0
+    inputs = {}
+    for label, frame16 in (("noise", noise16), ("smooth", smooth16)):
+        inputs[label] = pred_inputs(frame16)
+        for sid, (red_t, red_l) in inputs[label].items():
+            got = kernel(red_t, red_l, sid)
+            want = kernel.plain(red_t, red_l, sid)
+            torch.cuda.synchronize()
+            err = (int((got.int() - want.int()).abs().max())
+                   if got.shape == want.shape else -1)
+            max_err = max(max_err, abs(err))
+            if err or got.dtype != torch.int16:
+                failures.append(f"pred {label} SizeId {sid}: max_abs_err "
+                                f"{err}, {got.dtype} {tuple(got.shape)}")
+            print(f"check pred {label} SizeId {sid} ({red_t.shape[1]} CUs, "
+                  f"out {tuple(got.shape)}): max_abs_err {err}")
+
+    weights = weights_from_numpy(matrices(), noise16.device)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 reference
+    torch.backends.cudnn.allow_tf32 = False
+    row = {"ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0, "cublas": 0.0,
+           "sizeid_ms": {}}
+    for sid, (red_t, red_l) in inputs["noise"].items():
+        m, s, c = weights[sid].shape
+        n = red_t.shape[1]
+        ms = Timer(lambda: kernel(red_t, red_l, sid), 20).ms
+        plain_ms = Timer(lambda: kernel.plain(red_t, red_l, sid), 3).ms
+        mat = torch.cat([weights[sid], weights[sid]]).reshape(
+            2 * m * s, c).float()
+        off = torch.cat([red_t, red_l]).float()
+        cublas_ms = Timer(lambda: torch.matmul(mat, off), 20).ms
+        # what the function needs: per output sample C multiply-adds (C - 1
+        # for SizeId 2, whose first offset is 0), shift, add, two clamps;
+        # per (CU, wing) 3C for the offsets and their sum
+        macs = c - 1 if sid == 2 else c
+        ops = n * (2 * m * s * (macs + 4) + 2 * 3 * c)
+        nbytes = (red_t.numel() + red_l.numel()) * 4 + weights[sid].numel() * 4
+        nbytes += 2 * m * s * n * 2
+        bound = max(ops / int_rate, nbytes / HBM_BYTES_PER_S) * 1e3
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        row["ops"] += ops
+        row["bytes"] += nbytes
+        row["cublas"] += cublas_ms
+        row["sizeid_ms"][str(sid)] = round(ms, 4)
+        print(f"pred SizeId {sid}: {n} CUs, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, cuBLAS fp32 [{2 * m * s}x{c}]x[{c}x{n}] "
+              f"{cublas_ms:.4f} ms, bound {bound:.4f} ms ({ops / 1e9:.3f} G "
+              f"int ops, {nbytes / 1e6:.1f} MB)", flush=True)
+    row["max_err"] = max_err
+    return row
+
+
+def phase_filters(batch: torch.Tensor, failures) -> None:
+    """(b) filter_frames on the card against the CPU, all 8 variants x
+    every KernelIdx, on a noise and a smooth frame; then each variant's
+    time on the batch (KernelIdx 2)."""
+    from vvc_mip_gpu_tpu_torch.constants import AVAILABLE_FILTERS
+    from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+
+    rng = np.random.default_rng(3)
+    cpu = torch.from_numpy(np.stack([
+        rng.integers(0, 1024, (MAIN_H, MAIN_W)),
+        synthetic_frames(1, MAIN_W, MAIN_H, seed=4)[0]]).astype(np.int32))
+    card = cpu.to(batch.device)
+    pairs = [(ftype, kidx) for ftype in AVAILABLE_FILTERS
+             for kidx in range(3 if "5x5" in ftype else 5)]
+    bad = [f"{ftype}[{kidx}]" for ftype, kidx in pairs
+           if not torch.equal(filter_frames(card, ftype, kidx).cpu(),
+                              filter_frames(cpu, ftype, kidx))]
+    if bad:
+        failures.append(f"filters differ on the card from the CPU: {bad}")
+    print(f"check filters: {len(pairs)} variant/KernelIdx pairs, card vs "
+          f"CPU: {'bit-exact' if not bad else 'DIFFER ' + str(bad)}")
+    for ftype in AVAILABLE_FILTERS:
+        ms = Timer(lambda: filter_frames(batch, ftype, 2), 5).ms
+        print(f"filter {ftype}[2]: {ms:.3f} ms per batch of "
+              f"{batch.shape[0]}", flush=True)
+
+
+def phase_filtered_full(frames: torch.Tensor, failures) -> None:
+    """(c) the filtered regime with the full report, driven through the
+    entry points: compute_batch(frames, filter_frames(frames, ...))."""
+    from vvc_mip_gpu_tpu_torch.constants import num_ctus
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import (
+        PER_CTU, MipCostEngine, class_runs)
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+    from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
+
+    engine = MipCostEngine(MAIN_W, MAIN_H)
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    refs = filter_frames(frames, *FILTER)
+    costs = engine.compute_batch(frames, refs)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS}
+    print(f"filtered full-report path launches: {launches}")
+    if list(launches.values()) != [1, 7, 9]:
+        failures.append(f"filtered path launches {launches}, want 1/7/9")
+    shape = (frames.shape[0], num_ctus(MAIN_W, MAIN_H)[2], PER_CTU)
+    if any(t is None or tuple(t.shape) != shape or t.dtype != torch.int32
+           for t in (costs.sad, costs.satd, costs.min_sad_had)):
+        failures.append("filtered path: cost tensors of the wrong shape")
+        return
+    f16 = frames[:2].to(torch.int16).contiguous()
+    r16 = refs[:2].to(torch.int16).contiguous()
+    plain = [torch.full((2, *shape[1:]), -1, dtype=torch.int32,
+                        device=frames.device) for _ in range(2)]
+    for run in class_runs(MAIN_W, MAIN_H, frames.device):
+        run.kernel.plain(f16, r16, r16[:, 0].contiguous(), True, run.plan,
+                         run.table, run.weights, plain)
+    want = (plain[0], plain[1], torch.minimum(2 * plain[0], plain[1]))
+    bad = [name for name, got, exp in zip(
+        ("SAD", "SATD", "minSadHad"),
+        (costs.sad, costs.satd, costs.min_sad_had), want)
+        if not torch.equal(got[:2], exp)]
+    if bad:
+        failures.append(f"filtered path {bad} differ from the plain path "
+                        f"on frames 0-1")
+    print("check filtered full-report path: SAD, SATD, minSadHad of frames "
+          f"0-1 vs the plain path: {'equal' if not bad else 'DIFFER'}")
+    filt = Timer(lambda: filter_frames(frames, *FILTER), TIMED_ITERS).ms
+    search = Timer(lambda: engine.compute_batch(frames, refs),
+                   TIMED_ITERS).ms
+    both = Timer(lambda: engine.compute_batch(
+        frames, filter_frames(frames, *FILTER)), TIMED_ITERS).ms
+    b = frames.shape[0]
+    print(f"filtered full report: {both:.3f} ms per batch of {b} "
+          f"({both / b:.4f} ms/frame, {b * 1e3 / both:.2f} frames/s); "
+          f"filter {filt:.3f} ms, search {search:.3f} ms", flush=True)
+
+
+def phase_inspect(failures) -> int:
+    """(d) inspect_ctu on the card (through mip_reduced_pred) against the
+    host's, groups of each SizeId, edge CTUs and a filtered reference.
+    Returns the kernel's launches in this path."""
+    from vvc_mip_gpu_tpu_torch.constants import num_ctus
+    from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+    from vvc_mip_gpu_tpu_torch.models.inspect import inspect_ctu
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+    from vvc_mip_gpu_tpu_torch.ops.pred import mip_reduced_pred
+
+    rng = np.random.default_rng(7)
+    noise = rng.integers(0, 1024, (MAIN_H, MAIN_W)).astype(np.int32)
+    smooth = synthetic_frames(1, MAIN_W, MAIN_H, seed=8)[0].astype(np.int32)
+    filtered = filter_frames(torch.from_numpy(smooth)[None].cuda(),
+                             *FILTER)[0]
+    cols, rows, n_ctu = num_ctus(MAIN_W, MAIN_H)
+    bottom = n_ctu - cols  # the partial bottom row at 1080p (56 of 128)
+    # (frame, reference, group, CTU): groups of every SizeId, interior,
+    # top-row, bottom-row and corner CTUs, original and filtered refs
+    cases = [(noise, None, 6, cols + 2), (noise, None, 0, n_ctu - 1),
+             (noise, None, 46, bottom), (noise, None, 32, bottom + 7),
+             (smooth, filtered, 20, (rows // 2) * cols + 4),
+             (smooth, filtered, 41, n_ctu - 1), (smooth, filtered, 29, 3),
+             (smooth, filtered, 46, bottom + 10),
+             (smooth, filtered, 27, bottom + 5)]
+    torch.cuda.synchronize()
+    mip_reduced_pred.launches = 0
+    results = [inspect_ctu(frame, ctu, group, ref_frame=ref,
+                           from_engine=True)
+               for frame, ref, group, ctu in cases]
+    torch.cuda.synchronize()
+    launches = mip_reduced_pred.launches
+    for (frame, ref, group, ctu), dev in zip(cases, results):
+        host = inspect_ctu(frame, ctu, group, ref_frame=ref)
+        bad = [k for k in host if k != "group" and not (
+            k in dev and np.array_equal(dev[k], host[k]))]
+        if sorted(dev) != sorted(host) or bad:
+            failures.append(f"inspect group {group} CTU {ctu}: {bad}")
+        shapes = ", ".join(f"{k} {v.shape}" for k, v in dev.items()
+                           if k != "group")
+        print(f"check inspect group {group} ({dev['group']}) CTU {ctu}"
+              f"{' filtered ref' if ref is not None else ''}: "
+              f"{'bit-exact' if not bad else 'DIFFERS in ' + str(bad)} "
+              f"({shapes})")
+    print(f"inspect path: mip_reduced_pred launches {launches} for "
+          f"{len(cases)} readbacks", flush=True)
+    if launches != len(cases):
+        failures.append(f"inspect path launched mip_reduced_pred "
+                        f"{launches} times, want {len(cases)}")
+    return launches
+
+
+def phase_cli(card: str, failures) -> None:
+    """(e) the port's CLI in-process, into a temporary directory: the
+    filtered regime, full report, a target CTU, two frames in one chunk.
+    Checks each CSV's header and row count, and frame 0's decisions CSV
+    and the target-CTU CSV byte for byte against a fresh export of the
+    card's costs; the files are deleted afterwards."""
+    from vvc_mip_gpu_tpu_torch import cli
+    from vvc_mip_gpu_tpu_torch.constants import num_ctus
+    from vvc_mip_gpu_tpu_torch.io.export import (
+        export_decisions_csv, export_target_ctu_csv)
+    from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import (
+        PER_CTU, MipCostEngine)
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+    from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
+
+    n_ctu = num_ctus(MAIN_W, MAIN_H)[2]
+    header = "POC,CTU,cuSizeName,W,H,CU,X,Y,Mode,SAD,SATD,minSadHad"
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = str(Path(tmp) / "cli_")
+        args = ["-f", "2", "-s", f"{MAIN_W}x{MAIN_H}", "--Synthetic",
+                "--FullDistortion", "--FilterType", FILTER[0],
+                "--KernelIdx", str(FILTER[1]), "--TargetCTU",
+                str(CLI_TARGET_CTU), "--BatchFrames", "2", "-l", prefix]
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with open(Path(tmp) / "stdout.txt", "w") as out, \
+                contextlib.redirect_stdout(out):
+            rc = cli.main(args)
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+        text = (Path(tmp) / "stdout.txt").read_text()
+        report = text[text.index("Stage timing report:"):].rstrip()
+        print(f"CLI {' '.join(args[:-2])}: rc {rc}, {wall:.2f} s wall, "
+              f"launches {launches} ({card})")
+        print(report)
+        if rc != 0 or list(launches.values()) != [1, 7, 9]:
+            failures.append(f"CLI rc {rc}, launches {launches}")
+        frames = torch.from_numpy(synthetic_frames(
+            2, MAIN_W, MAIN_H).astype(np.int32)).cuda()
+        costs = MipCostEngine(MAIN_W, MAIN_H).compute_batch(
+            frames, filter_frames(frames, *FILTER))
+        sad, satd, msh = (t.cpu().numpy() for t in (
+            costs.sad, costs.satd, costs.min_sad_had))
+        for name, rows in (("mip_decisions_poc0.csv", n_ctu * PER_CTU),
+                           ("mip_decisions_poc1.csv", n_ctu * PER_CTU),
+                           (f"target_ctu{CLI_TARGET_CTU}.csv", 2 * PER_CTU)):
+            path = Path(prefix + name)
+            got_header, got_rows = csv_shape(path)
+            ok = got_header == header and got_rows == rows
+            print(f"check CLI {name}: {got_rows} rows, "
+                  f"{path.stat().st_size / 1e6:.1f} MB, header "
+                  f"{'ok' if got_header == header else repr(got_header)}: "
+                  f"{'ok' if ok else 'WRONG'}", flush=True)
+            if not ok:
+                failures.append(f"CLI {name}: header or rows wrong")
+        # the export layer alone: the card's costs of frame 0 and of the
+        # target CTU, written again, must give the CLI's files byte for
+        # byte (the exports equal the JAX package's bytes on the CPU)
+        again = Path(tmp) / "again.csv"
+        t0 = time.perf_counter()
+        export_decisions_csv(again, msh[0], MAIN_W, sad=sad[0],
+                             satd=satd[0], poc=0)
+        export_s = time.perf_counter() - t0
+        same = filecmp.cmp(again, prefix + "mip_decisions_poc0.csv",
+                           shallow=False)
+        print(f"export_decisions_csv of frame 0 (full report, "
+              f"{n_ctu * PER_CTU} rows): {export_s:.2f} s; equals the "
+              f"CLI's file: {same}", flush=True)
+        export_target_ctu_csv(
+            again, list(msh[:, CLI_TARGET_CTU]), MAIN_W, CLI_TARGET_CTU,
+            sad_per_frame=list(sad[:, CLI_TARGET_CTU]),
+            satd_per_frame=list(satd[:, CLI_TARGET_CTU]), pocs=[0, 1])
+        same_target = filecmp.cmp(
+            again, f"{prefix}target_ctu{CLI_TARGET_CTU}.csv", shallow=False)
+        print(f"export_target_ctu_csv of the card's costs equals the CLI's "
+              f"file: {same_target}", flush=True)
+        if not (same and same_target):
+            failures.append("CLI decisions or target CSV differs from the "
+                            "export of the card's costs")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -83,6 +413,7 @@ def main() -> int:
         PER_CTU, MipCostEngine, class_runs, compute_ext)
     from vvc_mip_gpu_tpu_torch.ops import _build
     from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
+    from vvc_mip_gpu_tpu_torch.ops.pred import mip_reduced_pred
 
     card = smi("name,power.limit")
     dev = torch.device("cuda", 0)
@@ -93,18 +424,23 @@ def main() -> int:
           f"SMs {props.multi_processor_count}", flush=True)
 
     # ---- 1. build the kernels from csrc/ (never a library left by an
-    # earlier run in this tree)
-    _build.library_path().unlink(missing_ok=True)
+    # earlier run in this tree), one nvcc per source, all at once
+    for name in _build.LIBRARIES:
+        _build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
-    lib_path, log = _build.build_library()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
-    kernel = "?"
-    for line in log.splitlines():  # ptxas -v: per-kernel resources
-        if m := re.search(r"Function properties for \S*(mip_cost_sid\d)"
-                          r"_kernelILi(\d+)ELi(\d+)E", line):
-            kernel = f"{m[1]} {m[2]}x{m[3]}"
-        elif "spill" in line or "registers" in line:
-            print(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
+    built = _build.build_libraries()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> "
+          f"{', '.join(path.name for path, _ in built.values())}")
+    for _, log in built.values():
+        kernel = "?"
+        for line in log.splitlines():  # ptxas -v: per-kernel resources
+            if m := re.search(r"Function properties for \S*?\d("
+                              r"mip_(?:cost_sid\d|reduced_pred)_kernel)"
+                              r"I((?:Li\d+E)+)", line):
+                params = re.findall(r"Li(\d+)E", m[2])
+                kernel = f"{m[1]}<{','.join(params)}>"
+            elif "spill" in line or "registers" in line:
+                print(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
     print(flush=True)
 
     failures: list[str] = []
@@ -262,6 +598,20 @@ def main() -> int:
               f"({ops / 1e9:.2f} G int ops, {nbytes / 1e6:.1f} MB)",
               flush=True)
 
+    # ---- 4-8. the prediction kernel, the filters, the filtered full
+    # report, the inspect readback and the CLI
+    noise16 = f16[0]
+    smooth16 = torch.from_numpy(synthetic_frames(
+        1, MAIN_W, MAIN_H, seed=5)[0].astype(np.int16)).to(dev)
+    pred = phase_pred(noise16, smooth16, int_rate, failures)
+    phase_filters(frames, failures)
+    phase_filtered_full(frames, failures)
+    pred_launches = phase_inspect(failures)
+    phase_cli(card, failures)
+    if failures:
+        print("FAILED:", *failures, sep="\n  ", file=sys.stderr)
+        return 1
+
     rows = []
     for k in KERNELS:
         agg = per_kernel[k.name]
@@ -277,6 +627,19 @@ def main() -> int:
             "library_ms": None, "bit_exact": max_err[k.name] == 0,
             "classes_ms": agg["classes"],
             "shape": f"{MAIN_BATCH}x{MAIN_W}x{MAIN_H}"})
+    t_ops = pred["ops"] / int_rate * 1e3
+    t_bytes = pred["bytes"] / HBM_BYTES_PER_S * 1e3
+    rows.append({
+        "name": "mip_reduced_pred", "route": "cuda", "source": PRED_SOURCE,
+        "replaces": mip_reduced_pred.replaces, "launches": pred_launches,
+        "max_abs_err": pred["max_err"], "ms": round(pred["ms"], 4),
+        "plain_ms": round(pred["plain_ms"], 3),
+        "bound_ms": round(max(t_ops, t_bytes), 4),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None, "bit_exact": pred["max_err"] == 0,
+        "sizeid_ms": pred["sizeid_ms"],
+        "cublas_fp32_product_ms": round(pred["cublas"], 4),
+        "shape": f"all CUs of one {MAIN_W}x{MAIN_H} frame, SizeId 0-2"})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""The CUDA cost kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: they need an NVIDIA card and nvcc, and skip elsewhere.
 Run them on the card with
@@ -7,19 +7,28 @@ Run them on the card with
 
 (``--noconftest``: the suite's conftest imports JAX, which the card's
 machine need not have; this file imports only torch and the port.)
-Every class's kernel instantiation is held against its plain version on
-the same CUDA tensors, bit for bit, at 256x128 and at 608x192 (partial
-right and bottom CTUs), in both output regimes.
+Every class's cost-kernel instantiation is held against its plain version
+on the same CUDA tensors, bit for bit, at 256x128 and at 608x192 (partial
+right and bottom CTUs), in both output regimes; so is the
+reduced-prediction kernel for each SizeId, the inspect readback on the
+card against the host's, and the filters on the card against the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vvc_mip_gpu_tpu_torch.constants import num_ctus
+from vvc_mip_gpu_tpu_torch.constants import (
+    AVAILABLE_FILTERS,
+    BOUNDARY_SIZE,
+    num_ctus,
+)
 from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
 from vvc_mip_gpu_tpu_torch.models import cost_engine as tce
+from vvc_mip_gpu_tpu_torch.models.inspect import inspect_ctu
+from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
 from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
+from vvc_mip_gpu_tpu_torch.ops.pred import mip_reduced_pred
 
 pytestmark = [
     pytest.mark.cuda,
@@ -83,3 +92,53 @@ def test_compute_batch_launches_each_kernel_per_class():
     engine.compute_batch(frames)
     torch.cuda.synchronize()
     assert [k.launches for k in KERNELS] == [1, 7, 9]
+
+
+@pytest.mark.parametrize("size_id", [0, 1, 2])
+def test_pred_kernel_matches_plain(size_id):
+    rng = np.random.default_rng(size_id)
+    bs = BOUNDARY_SIZE[size_id]
+    for n_cu in (1, 700, 40_000):
+        red_t, red_l = (torch.from_numpy(rng.integers(
+            0, 1024, (bs, n_cu)).astype(np.int32)).cuda() for _ in range(2))
+        before = mip_reduced_pred.launches
+        got = mip_reduced_pred(red_t, red_l, size_id)
+        want = mip_reduced_pred.plain(red_t, red_l, size_id)
+        torch.cuda.synchronize()
+        assert mip_reduced_pred.launches == before + 1
+        assert got.dtype == torch.int16 and got.shape == want.shape
+        assert torch.equal(got, want), (
+            f"SizeId {size_id}, {n_cu} CUs: "
+            f"{int((got != want).sum())} samples differ")
+
+
+@pytest.mark.parametrize("group_idx,ctu_idx", [(6, 0), (0, 3), (46, 5),
+                                               (30, 4), (41, 2), (36, 5)])
+def test_inspect_on_the_card_matches_the_host(group_idx, ctu_idx):
+    """384x136: CTUs 3-5 are the partial bottom row."""
+    rng = np.random.default_rng(group_idx)
+    frame = rng.integers(0, 1024, (136, 384))
+    ref = synthetic_frames(1, 384, 136, seed=group_idx)[0]
+    before = mip_reduced_pred.launches
+    dev = inspect_ctu(frame, ctu_idx, group_idx, ref_frame=ref,
+                      from_engine=True)
+    host = inspect_ctu(frame, ctu_idx, group_idx, ref_frame=ref)
+    assert mip_reduced_pred.launches == before + 1
+    assert sorted(dev) == sorted(host)
+    for key, value in host.items():
+        if key != "group":
+            np.testing.assert_array_equal(dev[key], value, err_msg=key)
+
+
+@pytest.mark.parametrize("ftype", AVAILABLE_FILTERS)
+def test_filters_on_the_card_match_the_cpu(ftype):
+    rng = np.random.default_rng(5)
+    frames = np.stack([rng.integers(0, 1024, (136, 200)),
+                       synthetic_frames(1, 200, 136, seed=5)[0]]).astype(
+                           np.int32)
+    cpu = torch.from_numpy(frames)
+    for kidx in range(3 if "5x5" in ftype else 5):
+        got = filter_frames(cpu.cuda(), ftype, kidx)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), filter_frames(cpu, ftype, kidx)), (
+            f"{ftype}[{kidx}]")

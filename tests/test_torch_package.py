@@ -1,7 +1,8 @@
 """Package rules of the PyTorch/CUDA port: it stands alone (no JAX, nothing
-of the JAX package), its copied tables equal the reference's, its engine
-runs on the card unless asked for the CPU, and its CU tables cover the
-strided cost layout exactly."""
+of the JAX package, no pandas, which the card's machine lacks), its copied
+tables equal the reference's, its entry points run on the card unless
+asked for the CPU, and its CU tables cover the strided cost layout
+exactly."""
 
 import ast
 from pathlib import Path
@@ -36,7 +37,8 @@ def _imported_modules(path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
     banned = [m for m in _imported_modules(path)
-              if m.split(".")[0] in ("jax", "jaxlib", "vvc_mip_gpu_tpu")]
+              if m.split(".")[0] in ("jax", "jaxlib", "vvc_mip_gpu_tpu",
+                                     "pandas")]
     assert not banned, f"{path.name} imports {banned}"
 
 
@@ -56,6 +58,37 @@ def test_constants_match_reference():
                  "PRED_MODES"):
         assert getattr(tconst, name) == getattr(jconst, name), name
     assert tconst.num_ctus(1920, 1080) == jconst.num_ctus(1920, 1080)
+
+
+def test_filter_and_resolution_tables_match_reference():
+    assert tconst.AVAILABLE_FILTERS == jconst.AVAILABLE_FILTERS
+    assert tconst.AVAILABLE_RES == jconst.AVAILABLE_RES
+    for name in ("CONV_KERNELS_3x3", "CONV_KERNELS_5x5"):
+        mine, ref = getattr(tconst, name), getattr(jconst, name)
+        assert mine.dtype == ref.dtype, name
+        np.testing.assert_array_equal(mine, ref, err_msg=name)
+
+
+def test_cli_and_inspect_default_to_cuda(monkeypatch):
+    """Without VVC_MIP_PLATFORM the CLI asks for cuda:<DeviceIndex>, and
+    the inspect readback runs on "cuda" unless given another device."""
+    from vvc_mip_gpu_tpu_torch import cli
+    from vvc_mip_gpu_tpu_torch.models.inspect import inspect_ctu
+    from vvc_mip_gpu_tpu_torch.utils.config import EngineConfig
+
+    assert inspect_ctu.__defaults__[-1] == "cuda"
+    monkeypatch.delenv("VVC_MIP_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert cli.run_device(EngineConfig(device_index=1)) == torch.device(
+        "cuda", 1)
+    with pytest.raises(ValueError, match="DeviceIndex"):
+        cli.run_device(EngineConfig(device_index=2))
+    monkeypatch.setenv("VVC_MIP_PLATFORM", "cpu")
+    assert cli.run_device(EngineConfig()).type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        inspect_ctu(np.zeros((128, 128), np.int32), 0, 0, from_engine=True)
 
 
 def test_weights_from_reference_equal_own_copy():
@@ -134,5 +167,43 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "Path", lambda p: tmp_path / "no-nvcc")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
-    # the library name follows the source and the flags
-    assert _build.library_path().name.startswith("mip_cost_")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_libraries()
+    with pytest.raises(ValueError, match="unknown kernel library"):
+        _build.library_path("mip_nothing")
+
+
+def test_library_names_follow_each_source_headers_and_flags(monkeypatch,
+                                                              tmp_path):
+    """Each source builds its own library, named by a hash of that source,
+    the headers of csrc/ and the flags: editing one source, adding a
+    header or changing a flag renames the libraries it concerns, so a
+    stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in _build.LIBRARIES:
+        (csrc / f"{name}.cu").write_bytes((_build.CSRC / f"{name}.cu")
+                                          .read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    names = {n: _build.library_path(n).name for n in _build.LIBRARIES}
+    assert sorted(names) == ["mip_cost", "mip_pred"]
+    for name, lib in names.items():
+        assert lib.startswith(f"{name}_") and lib.endswith(".so")
+    (csrc / "mip_pred.cu").write_text(
+        (csrc / "mip_pred.cu").read_text() + "// edited\n")
+    assert _build.library_path("mip_pred").name != names["mip_pred"]
+    assert _build.library_path("mip_cost").name == names["mip_cost"]
+    edited = {n: _build.library_path(n).name for n in _build.LIBRARIES}
+    (csrc / "common.cuh").write_text("#pragma once\n")
+    for name in _build.LIBRARIES:
+        assert _build.library_path(name).name != edited[name]
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build.library_path("mip_cost").name != edited["mip_cost"]
+    # a library already built is loaded without running nvcc
+    lib = _build.library_path("mip_pred")
+    lib.parent.mkdir()
+    lib.write_bytes(b"")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    assert _build.build_libraries(("mip_pred",)) == {"mip_pred": (lib, "")}

@@ -38,6 +38,59 @@ REDUCED_PRED_SIZE = {0: 4, 1: 4, 2: 8}
 PRED_MODES = {0: 16, 1: 8, 2: 6}
 TEST_TRANSPOSED_MODES = True
 
+# Supported resolutions and their CTU counts (reference: constants.h:17-23).
+AVAILABLE_RES = {
+    (3840, 2160): 510,
+    (1920, 1080): 135,
+    (1280, 720): 60,
+    (832, 480): 28,
+    (416, 240): 8,
+}
+
+# Low-pass filter coefficient library for the "alternative samples" regime
+# (reference: constants.h:63-194).  All 8 variants draw their coefficients
+# from these integer kernels; the float variants only accumulate in float.
+CONV_KERNELS_3x3 = np.array(
+    [
+        [[1, 1, 1], [1, 1, 1], [1, 1, 1]],
+        [[1, 2, 1], [2, 3, 2], [1, 2, 1]],
+        [[1, 2, 1], [2, 12, 2], [1, 2, 1]],
+        [[1, 1, 1], [1, 8, 1], [1, 1, 1]],
+        [[1, 2, 1], [2, 4, 2], [1, 2, 1]],
+    ],
+    np.int32,
+)
+
+CONV_KERNELS_5x5 = np.array(
+    [
+        np.ones((5, 5), np.int32),
+        [[1, 1, 1, 1, 1],
+         [1, 1, 1, 1, 1],
+         [1, 1, 5, 1, 1],
+         [1, 1, 1, 1, 1],
+         [1, 1, 1, 1, 1]],
+        [[1, 2, 3, 2, 1],
+         [2, 4, 6, 4, 2],
+         [3, 6, 9, 6, 3],
+         [2, 4, 6, 4, 2],
+         [1, 2, 3, 2, 1]],
+    ],
+    np.int32,
+)
+
+# Names of the 8 filter variants selectable at runtime (reference:
+# constants.h:25-34).
+AVAILABLE_FILTERS = (
+    "filterFrame_1d_int",
+    "filterFrame_1d_float",
+    "filterFrame_2d_int_quarterCtu",
+    "filterFrame_2d_float_quarterCtu",
+    "filterFrame_1d_int_5x5",
+    "filterFrame_1d_float_5x5",
+    "filterFrame_2d_int_5x5_quarterCtu",
+    "filterFrame_2d_float_5x5_quarterCtu",
+)
+
 
 # Partition rules: every size group places its CUs on a cartesian grid
 # built from four coordinate rules:

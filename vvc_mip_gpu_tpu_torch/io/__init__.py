@@ -1,1 +1,1 @@
-"""Frame sources."""
+"""Frame I/O (the reference CSV format) and decisions-log export."""

@@ -1,1 +1,1 @@
-"""PyTorch ops and CUDA cost kernels for the MIP pipeline."""
+"""PyTorch ops, filters and the CUDA kernels of the MIP pipeline."""

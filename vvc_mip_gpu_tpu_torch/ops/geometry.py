@@ -133,6 +133,20 @@ def _group_plan(group_index: int, frame_w: int, frame_h: int) -> GroupPlan:
     )
 
 
+def ctu_plan(plan: GroupPlan, ctu_idx: int) -> GroupPlan:
+    """The group's lattice restricted to one CTU (raster index): its
+    lattice order is the CTU layout's CU order."""
+    ctu_r, ctu_c = divmod(ctu_idx, plan.ctu_cols)
+    if not 0 <= ctu_r < plan.ctu_rows:
+        raise ValueError(f"CTU {ctu_idx} out of range (0.."
+                         f"{plan.ctu_rows * plan.ctu_cols - 1})")
+    ys = plan.ys[ctu_r * plan.cu_rows:(ctu_r + 1) * plan.cu_rows]
+    xs = plan.xs[ctu_c * plan.cu_cols:(ctu_c + 1) * plan.cu_cols]
+    return dataclasses.replace(plan, ys=ys, xs=xs, y_prog=_progression(ys),
+                               x_prog=_progression(xs), ctu_rows=1,
+                               ctu_cols=1)
+
+
 def _axis_extent(prog, idx, n: int, win: int) -> int:
     """Rows/cols the padded frame must provide for this gather."""
     if prog is not None:

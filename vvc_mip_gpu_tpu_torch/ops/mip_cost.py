@@ -57,11 +57,7 @@ def class_costs_plain(frame, ref, halo_row, is_top: bool, cplan: ClassPlan,
             + torch.arange(two_m, device=frame.device)).reshape(-1)
     for b in range(frame.shape[0]):
         frame_pad = ops.pad_edge(frame[b], hp, wp)
-        ref_pad_f = frame_pad if ref is frame else ops.pad_edge(ref[b], hp,
-                                                                 wp)
-        halo_pad = ops.pad_edge(halo_row[b][None], 1, wp)
-        ref_ext = torch.cat([halo_pad, ref_pad_f], 0)
-        ref_pad = torch.cat([ref_ext[:, :1], ref_ext], 1)
+        ref_pad = ops.pad_reference(ref[b], halo_row[b], hp, wp)
         bnds = [ops.gather_boundaries(ref_pad, gp, is_top)
                 for gp in cplan.groups]
         ref_t = torch.cat([t for t, _ in bnds], -1)  # [w, nCU]
@@ -161,7 +157,8 @@ class CostKernel:
 
 @functools.cache
 def _launcher(size_id: int, w: int, h: int):
-    fn = getattr(_build.load_library(), f"mip_cost_sid{size_id}_{w}x{h}")
+    fn = getattr(_build.load_library("mip_cost"),
+                 f"mip_cost_sid{size_id}_{w}x{h}")
     fn.argtypes = _LAUNCH_ARGTYPES
     fn.restype = ctypes.c_int
     return fn

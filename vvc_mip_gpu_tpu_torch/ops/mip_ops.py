@@ -96,6 +96,16 @@ def pad_edge(a: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return a
 
 
+def pad_reference(ref: torch.Tensor, halo_row: torch.Tensor, rows: int,
+                  cols: int) -> torch.Tensor:
+    """The [1+rows, 1+cols] reference slab ``gather_boundaries`` reads:
+    the halo row on top, the [H, W] reference below, edge-padded to
+    [rows, cols], with the first column duplicated on the left."""
+    ref_ext = torch.cat([pad_edge(halo_row[None], 1, cols),
+                         pad_edge(ref, rows, cols)], 0)
+    return torch.cat([ref_ext[:, :1], ref_ext], 1)
+
+
 def gather_boundaries(ref_pad: torch.Tensor, plan: GroupPlan, is_top: bool):
     """Top/left boundaries in SoA layout: ([w, nCU], [h, nCU]).
 
