@@ -6,13 +6,19 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds every kernel library from csrc/ (one nvcc per source, started
-together), holds every kernel against its plain PyTorch version on the card
-(bit-exact: every value is an integer), and drives each of the port's paths
-through the entry points a user calls, all at 1920x1080:
+together), prints each kernel's ptxas registers and spills (and fails if a
+kernel redesigned for Hopper spills) and its static SASS instruction mix
+(utils/sass.py), holds every kernel against its plain PyTorch version on
+the card (bit-exact: every value is an integer; all 17 cost classes on
+noise and smooth frames at 1920x1080 and 608x192, both output regimes, a
+halo row, a distinct reference, and saturated frames: all 1023, all 0, a
+0/1023 checkerboard), and drives each of the port's paths through the
+entry points a user calls, all at 1920x1080:
 
 - the main path, MipCostEngine(1920, 1080,
   max_performance=True).compute_batch over 16 distinct uniform-random
-  frames resident on the card, timed;
+  frames resident on the card, timed, then each class's launch timed
+  beside its bound;
 - (a) the reduced-prediction kernel against its plain version on the
   reduced boundaries of every class of a noise and a smooth frame, timed
   beside its bound and a cuBLAS fp32 product of the same shapes;
@@ -51,15 +57,22 @@ import torch
 
 MAIN_W, MAIN_H, MAIN_BATCH = 1920, 1080, 16
 TIMED_ITERS = 10
-# Integer results per clock per SM for 32-bit add, multiply-add, shift,
-# compare and logic at compute capability 9.0 (CUDA C++ Programming Guide,
-# arithmetic instruction throughput table).
-INT32_OPS_PER_CLK_PER_SM = 64
+# The most 32-bit integer results an SM can produce per clock at compute
+# capability 9.0: its 4 schedulers each issue one 32-lane warp instruction
+# a clock.  Two pipes share that rate, 64 results per clock each (CUDA C++
+# Programming Guide, arithmetic instruction throughput table): multiply-add
+# on the FMA pipe, add, logic, shift, abs and min/max on the integer pipe.
+# A kernel whose multiply-adds and other integer operations overlap can
+# beat 64 per clock, and the 4x4 cost kernel does.
+INT32_OPS_PER_CLK_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_cost.cu"
 PRED_SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_pred.cu"
 FILTER = ("filterFrame_2d_int_quarterCtu", 2)  # the filtered-regime phases
 CLI_TARGET_CTU = 5
+# the launches redesigned for Hopper (one thread per CU; 8 threads per
+# (CU, mode)): ptxas must report no spills for them
+REDESIGNED = ("mip_cost_sid0_kernel<4,4>", "mip_cost_sid2_kernel<64,64>")
 
 
 def smi(query: str) -> str:
@@ -414,6 +427,8 @@ def main() -> int:
     from vvc_mip_gpu_tpu_torch.ops import _build
     from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
     from vvc_mip_gpu_tpu_torch.ops.pred import mip_reduced_pred
+    from vvc_mip_gpu_tpu_torch.utils.sass import (
+        describe, instruction_mix, kernel_name)
 
     card = smi("name,power.limit")
     dev = torch.device("cuda", 0)
@@ -431,19 +446,34 @@ def main() -> int:
     built = _build.build_libraries()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{', '.join(path.name for path, _ in built.values())}")
+    failures: list[str] = []
+    resources: dict[str, dict] = {}
     for _, log in built.values():
         kernel = "?"
         for line in log.splitlines():  # ptxas -v: per-kernel resources
-            if m := re.search(r"Function properties for \S*?\d("
-                              r"mip_(?:cost_sid\d|reduced_pred)_kernel)"
-                              r"I((?:Li\d+E)+)", line):
-                params = re.findall(r"Li(\d+)E", m[2])
-                kernel = f"{m[1]}<{','.join(params)}>"
+            if m := re.search(r"Function properties for (\S+)", line):
+                kernel = kernel_name(m[1])
             elif "spill" in line or "registers" in line:
                 print(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
+                res = resources.setdefault(kernel, {})
+                if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", line):
+                    res["spill_bytes"] = int(m[1]) + int(m[2])
+                if m := re.search(r"Used (\d+) registers", line):
+                    res["registers"] = int(m[1])
+    for kernel in REDESIGNED:
+        res = resources.get(kernel, {})
+        print(f"ptxas {kernel} (redesigned): {res}")
+        if res.get("spill_bytes") != 0:
+            failures.append(f"{kernel}: ptxas spills {res}")
+    try:  # the static instruction mix of the cost kernels
+        mix = instruction_mix(built["mip_cost"][0])
+        for kernel, counts in mix.items():
+            print(f"sass {kernel}: {describe(counts)}")
+    except (RuntimeError, subprocess.CalledProcessError) as err:
+        print(f"sass: not measured ({err})")
     print(flush=True)
 
-    failures: list[str] = []
     max_err = {k.name: 0 for k in KERNELS}
 
     def check(label, frames, refs, halo, is_top, width, height,
@@ -515,6 +545,15 @@ def main() -> int:
     ref = torch.from_numpy(rng.integers(0, 1024, (2, MAIN_H, MAIN_W))).to(dev)
     check("1920x1080 distinct-ref", fr, ref, ref[:, 0], True, MAIN_W, MAIN_H,
           True)
+    # saturated content: the prediction clamp at both ends and the largest
+    # differences and SATDs (all-1023, all-0, a 0/1023 checkerboard)
+    yy, xx = np.mgrid[:MAIN_H, :MAIN_W]
+    fr = torch.from_numpy(np.stack([
+        np.full((MAIN_H, MAIN_W), 1023), np.zeros((MAIN_H, MAIN_W), np.int64),
+        (yy + xx) % 2 * 1023]).astype(np.int32)).to(dev)
+    for mp in (True, False):
+        check(f"1920x1080 saturated mp={int(mp)}", fr, fr, fr[:, 0], True,
+              MAIN_W, MAIN_H, mp)
     if failures:
         print("FAILED:", *failures, sep="\n  ", file=sys.stderr)
         return 1
@@ -573,7 +612,8 @@ def main() -> int:
           f"{props.multi_processor_count} SMs x {clock_mhz:.0f} MHz), "
           f"memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     per_kernel = {k.name: {"ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0,
-                           "classes": {}} for k in KERNELS}
+                           "classes": {}, "class_bounds": {}}
+                  for k in KERNELS}
     for run in runs:
         s = run.plan.shape
         args = (f16, f16, halo16, True, run.plan, run.table, run.weights,
@@ -593,10 +633,11 @@ def main() -> int:
         agg["ops"] += ops
         agg["bytes"] += nbytes
         agg["classes"][f"{s.width}x{s.height}"] = round(ms, 4)
+        agg["class_bounds"][f"{s.width}x{s.height}"] = round(bound, 4)
         print(f"class {s.width}x{s.height} {run.kernel.name}: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound:.4f} ms "
-              f"({ops / 1e9:.2f} G int ops, {nbytes / 1e6:.1f} MB)",
-              flush=True)
+              f"({ops / 1e9:.2f} G int ops, {nbytes / 1e6:.1f} MB), "
+              f"{ms / bound:.2f}x the bound, 1 launch per batch", flush=True)
 
     # ---- 4-8. the prediction kernel, the filters, the filtered full
     # report, the inspect readback and the CLI
@@ -626,6 +667,7 @@ def main() -> int:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "bit_exact": max_err[k.name] == 0,
             "classes_ms": agg["classes"],
+            "classes_bound_ms": agg["class_bounds"],
             "shape": f"{MAIN_BATCH}x{MAIN_W}x{MAIN_H}"})
     t_ops = pred["ops"] / int_rate * 1e3
     t_bytes = pred["bytes"] / HBM_BYTES_PER_S * 1e3

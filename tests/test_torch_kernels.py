@@ -9,7 +9,9 @@ Run them on the card with
 machine need not have; this file imports only torch and the port.)
 Every class's cost-kernel instantiation is held against its plain version
 on the same CUDA tensors, bit for bit, at 256x128 and at 608x192 (partial
-right and bottom CTUs), in both output regimes; so is the
+right and bottom CTUs), in both output regimes, and the redesigned 4x4
+and 64x64 launches again on saturated frames (all 1023, all 0, a
+0/1023 checkerboard); so is the
 reduced-prediction kernel for each SizeId, the inspect readback on the
 card against the host's, and the filters on the card against the CPU.
 """
@@ -69,6 +71,44 @@ def test_kernel_matches_plain(ci, size, max_performance):
             assert torch.equal(k, p), (
                 f"{run.plan.shape.width}x{run.plan.shape.height}: "
                 f"{int((k != p).sum())} entries differ")
+
+
+def _saturated(content, width, height):
+    """[2, H, W] int16 frames that push the prediction clamp and the
+    largest SATD: all 1023, all 0, or a 0/1023 checkerboard (and its
+    complement as the second frame)."""
+    if content == "checker":
+        yy, xx = np.mgrid[:height, :width]
+        board = (yy + xx) % 2 * 1023
+        frames = np.stack([board, 1023 - board])
+    else:
+        frames = np.full((2, height, width), 1023 if content == "max" else 0)
+    return torch.from_numpy(frames.astype(np.int16)).cuda()
+
+
+@pytest.mark.parametrize("max_performance", [True, False])
+@pytest.mark.parametrize("size", [(256, 128), (608, 192)])
+@pytest.mark.parametrize("content", ["max", "zero", "checker"])
+@pytest.mark.parametrize("shape", [(4, 4), (64, 64)])
+def test_redesigned_kernels_on_saturated_content(shape, content, size,
+                                                 max_performance):
+    """The one-thread-per-CU 4x4 kernel and the 8-threads-per-(CU, mode)
+    64x64 kernel against their plain versions on saturated frames."""
+    width, height = size
+    frames = _saturated(content, width, height)
+    run = next(r for r in tce.class_runs(width, height, frames.device)
+               if (r.plan.shape.width, r.plan.shape.height) == shape)
+    n_ctu = num_ctus(width, height)[2]
+    outs = [[torch.full((2, n_ctu, tce.PER_CTU), -1, dtype=torch.int32,
+                        device="cuda")
+             for _ in range(1 if max_performance else 2)] for _ in range(2)]
+    args = (frames, frames, frames[:, 0].contiguous(), True, run.plan,
+            run.table, run.weights)
+    run.kernel(*args, outs[0])
+    run.kernel.plain(*args, outs[1])
+    torch.cuda.synchronize()
+    for k, p in zip(*outs):
+        assert torch.equal(k, p), f"{int((k != p).sum())} entries differ"
 
 
 def test_engine_inputs_on_the_card():
