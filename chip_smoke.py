@@ -6,14 +6,15 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds every kernel library from csrc/ (one nvcc per source, started
-together), prints each kernel's ptxas registers and spills (and fails if a
-kernel redesigned for Hopper spills) and its static SASS instruction mix
+together), prints each kernel's ptxas registers and spills (and fails if
+any cost kernel spills) and its static SASS instruction mix
 (utils/sass.py), holds every kernel against its plain PyTorch version on
 the card (bit-exact: every value is an integer; all 17 cost classes on
 noise and smooth frames at 1920x1080 and 608x192, both output regimes, a
-halo row, a distinct reference, and saturated frames: all 1023, all 0, a
-0/1023 checkerboard), and drives each of the port's paths through the
-entry points a user calls, all at 1920x1080:
+halo row, a distinct reference, saturated frames: all 1023, all 0, a
+0/1023 checkerboard, and outputs off 16-byte alignment), and drives each
+of the port's paths through the entry points a user calls, all at
+1920x1080:
 
 - the main path, MipCostEngine(1920, 1080,
   max_performance=True).compute_batch over 16 distinct uniform-random
@@ -70,9 +71,16 @@ SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_cost.cu"
 PRED_SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_pred.cu"
 FILTER = ("filterFrame_2d_int_quarterCtu", 2)  # the filtered-regime phases
 CLI_TARGET_CTU = 5
-# the launches redesigned for Hopper (one thread per CU; 8 threads per
-# (CU, mode)): ptxas must report no spills for them
-REDESIGNED = ("mip_cost_sid0_kernel<4,4>", "mip_cost_sid2_kernel<64,64>")
+# every cost launch, each redesigned for Hopper (one thread per CU for
+# 4x4; 8 threads per (CU, mode) for 64x64; one thread per (CU, mode,
+# 4-column strip) for the other 15 classes): ptxas must report no spills
+REDESIGNED = (
+    "mip_cost_sid0_kernel<4,4>",
+    *(f"mip_cost_sid1_kernel<{w},{h}>" for w, h in (
+        (32, 4), (4, 32), (16, 4), (4, 16), (8, 8), (8, 4), (4, 8))),
+    *(f"mip_cost_sid2_kernel<{w},{h}>" for w, h in (
+        (64, 64), (32, 32), (32, 16), (16, 32), (32, 8), (8, 32), (16, 16),
+        (16, 8), (8, 16))))
 
 
 def smi(query: str) -> str:
@@ -463,7 +471,7 @@ def main() -> int:
                     res["registers"] = int(m[1])
     for kernel in REDESIGNED:
         res = resources.get(kernel, {})
-        print(f"ptxas {kernel} (redesigned): {res}")
+        print(f"ptxas {kernel}: {res}")
         if res.get("spill_bytes") != 0:
             failures.append(f"{kernel}: ptxas spills {res}")
     try:  # the static instruction mix of the cost kernels
@@ -476,11 +484,21 @@ def main() -> int:
 
     max_err = {k.name: 0 for k in KERNELS}
 
+    def sentinel(shape, misaligned=False):
+        """An int32 output filled with -1; with ``misaligned``, a view one
+        element into a flat buffer (off 16-byte alignment)."""
+        n = int(np.prod(shape))
+        if not misaligned:
+            return torch.full(shape, -1, dtype=torch.int32, device=dev)
+        flat = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
+        return flat[1:].view(shape)
+
     def check(label, frames, refs, halo, is_top, width, height,
-              max_performance):
+              max_performance, misaligned=False):
         """Every class: kernel vs plain version on the same CUDA tensors,
         both into sentinel-filled outputs (so an entry the kernel fails to
-        write shows as a difference); then the engine's compute_ext on the
+        write shows as a difference; ``misaligned`` kernel outputs reach
+        the kernels' scalar stores); then the engine's compute_ext on the
         card against the plain results of all classes."""
         share = refs is frames
         frames = frames.to(torch.int16).contiguous()
@@ -492,8 +510,9 @@ def main() -> int:
         plain_all = [torch.full(shape, -1, dtype=torch.int32, device=dev)
                      for _ in range(n_out)]
         for run in class_runs(width, height, dev):
-            outs_k = [torch.full(shape, -1, dtype=torch.int32, device=dev)
-                      for _ in range(n_out)]
+            outs_k = [sentinel(shape, misaligned) for _ in range(n_out)]
+            if misaligned:
+                assert all(o.data_ptr() % 16 == 4 for o in outs_k)
             outs_p = [torch.full(shape, -1, dtype=torch.int32, device=dev)
                       for _ in range(n_out)]
             args = (frames, refs, halo, is_top, run.plan, run.table,
@@ -554,6 +573,10 @@ def main() -> int:
     for mp in (True, False):
         check(f"1920x1080 saturated mp={int(mp)}", fr, fr, fr[:, 0], True,
               MAIN_W, MAIN_H, mp)
+    # outputs one int32 off 16-byte alignment: the scalar store fallback
+    fr = frames_for(MAIN_W, MAIN_H)
+    check("1920x1080 misaligned-outputs", fr, fr, fr[:, 0], True, MAIN_W,
+          MAIN_H, False, misaligned=True)
     if failures:
         print("FAILED:", *failures, sep="\n  ", file=sys.stderr)
         return 1

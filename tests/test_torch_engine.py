@@ -1,8 +1,13 @@
 """The port's MipCostEngine (plain path, on the CPU) against the JAX
-MipCostEngine, on whole tensors: every CU including the out-of-frame ones
-(both fill them from edge replication), plus ``valid``, bit for bit.
+package's cost search, on whole tensors: every CU including the
+out-of-frame ones (both fill them from edge replication), plus ``valid``,
+bit for bit.  The JAX side is ``compute_ext`` and ``_validity_mask``, what
+the JAX MipCostEngine runs, compiled once per frame size and regime with
+``is_top`` traced, so the frame-top and the halo cases share one compile.
+The JAX MipCostEngine itself, with its Pallas kernels in interpret mode,
+is compared in test_torch_engine_interpret.py.
 
-Inputs are made with numpy from a seed and handed to both engines.
+Inputs are made with numpy from a seed and handed to both sides.
 """
 
 import functools
@@ -46,8 +51,21 @@ def _assert_costs_equal(exp, got, what):
 
 
 @functools.cache
-def _jax_engine(width, height, max_performance):
-    return jce.MipCostEngine(width, height, max_performance=max_performance)
+def _jax_compute_ext(width, height, max_performance):
+    """jce.compute_ext compiled for one frame size and regime; frame, ref,
+    halo row and is_top are traced."""
+    return jax.jit(functools.partial(jce.compute_ext, width=width,
+                                     height=height,
+                                     max_performance=max_performance))
+
+
+def _jax_costs(frame, ref, width, height, max_performance):
+    """The JAX engine's FrameCosts of one frame (its _compute: the frame's
+    top slab, the halo row being any row)."""
+    sad, satd, msh = _jax_compute_ext(width, height, max_performance)(
+        frame, ref, ref[0], True)
+    return jce.FrameCosts(sad=sad, satd=satd, min_sad_had=msh,
+                          valid=jce._validity_mask(width, height))
 
 
 def _frames(width, height, seed):
@@ -64,26 +82,26 @@ def test_engine_matches_jax(size, max_performance):
     distinct reference frame (alternative-samples regime)."""
     width, height = size
     noise, smooth, ref = _frames(width, height, seed=width + height)
-    jeng = _jax_engine(width, height, max_performance)
     teng = tce.MipCostEngine(width, height, max_performance=max_performance,
                              device="cpu")
-    # The JAX side's two-argument call with ref == frame is the same
-    # computation as its one-argument call (one compile instead of two).
     for name, frame in (("noise", noise), ("smooth", smooth)):
-        _assert_costs_equal(jeng(frame, frame), teng(frame), name)
-    _assert_costs_equal(jeng(smooth, ref), teng(smooth, ref), "distinct ref")
+        _assert_costs_equal(
+            _jax_costs(frame, frame, width, height, max_performance),
+            teng(frame), name)
+    _assert_costs_equal(
+        _jax_costs(smooth, ref, width, height, max_performance),
+        teng(smooth, ref), "distinct ref")
 
 
 def test_compute_ext_inner_slab_with_halo():
     """compute_ext on a slab that is not the frame's top (is_top=False):
     the top boundaries of the first CU row and the frame-left corner rule
-    come from the halo row."""
+    come from the halo row (the compile of test_engine_matches_jax's
+    608x192 full-report case)."""
     width, height = 608, 192
     frame, _, ref = _frames(width, height, seed=7)
     halo = np.random.default_rng(8).integers(0, 1024, width).astype(np.int32)
-    jfn = jax.jit(jce.compute_ext,
-                  static_argnames=("width", "height", "max_performance"))
-    exp = jfn(frame, ref, halo, False, width=width, height=height)
+    exp = _jax_compute_ext(width, height, False)(frame, ref, halo, False)
     got = tce.compute_ext(*(torch.from_numpy(a[None])
                             for a in (frame, ref, halo)),
                           False, width, height)
@@ -92,16 +110,15 @@ def test_compute_ext_inner_slab_with_halo():
 
 
 def test_compute_batch_matches_jax():
-    """B = 2 in one call against the JAX engine frame by frame (its
+    """B = 2 in one call against the JAX side frame by frame (its
     compiled one-frame function, shared with test_engine_matches_jax)."""
     width, height = 128, 128
     noise, smooth, _ = _frames(width, height, seed=3)
-    jeng = _jax_engine(width, height, True)
     got = tce.MipCostEngine(width, height, max_performance=True,
                             device="cpu").compute_batch(
                                 np.stack([noise, smooth]))
     for b, frame in enumerate((noise, smooth)):
-        exp = jeng(frame, frame)
+        exp = _jax_costs(frame, frame, width, height, True)
         _assert_costs_equal(exp, type(got)(
             *(None if t is None else t[b]
               for t in (got.sad, got.satd, got.min_sad_had, got.valid))),
@@ -122,24 +139,6 @@ def test_compute_blocks_flatten_to_compute_ext():
                                    max_performance=True, classes=(0, 16))
     assert sorted(sub) == [0, 46]
     assert torch.equal(sub[46], msh_b[46])
-
-
-def test_engine_matches_jax_pallas_interpret():
-    """Against the Pallas kernels themselves: the JAX engine with its
-    kernels in interpret mode (as tests/test_engine_vs_golden.py runs
-    them), whole tensors."""
-    width, height = 128, 128
-    frame = _frames(width, height, seed=5)[0]
-    old = jce._PALLAS_OVERRIDE, jce._PALLAS_INTERPRET
-    jce._PALLAS_OVERRIDE, jce._PALLAS_INTERPRET = True, True
-    try:
-        exp = jce.MipCostEngine(width, height, max_performance=True)(frame)
-        exp_msh = np.asarray(exp.min_sad_had)
-    finally:
-        jce._PALLAS_OVERRIDE, jce._PALLAS_INTERPRET = old
-    got = tce.MipCostEngine(width, height, max_performance=True,
-                            device="cpu")(frame)
-    np.testing.assert_array_equal(exp_msh, got.min_sad_had.numpy())
 
 
 def test_cpu_path_launches_no_kernel():

@@ -9,9 +9,9 @@ Run them on the card with
 machine need not have; this file imports only torch and the port.)
 Every class's cost-kernel instantiation is held against its plain version
 on the same CUDA tensors, bit for bit, at 256x128 and at 608x192 (partial
-right and bottom CTUs), in both output regimes, and the redesigned 4x4
-and 64x64 launches again on saturated frames (all 1023, all 0, a
-0/1023 checkerboard); so is the
+right and bottom CTUs), in both output regimes, again on saturated
+frames (all 1023, all 0, a 0/1023 checkerboard), and with misaligned
+frames and outputs (the kernels' scalar loads and stores); so is the
 reduced-prediction kernel for each SizeId, the inspect readback on the
 card against the host's, and the filters on the card against the CPU.
 """
@@ -89,15 +89,14 @@ def _saturated(content, width, height):
 @pytest.mark.parametrize("max_performance", [True, False])
 @pytest.mark.parametrize("size", [(256, 128), (608, 192)])
 @pytest.mark.parametrize("content", ["max", "zero", "checker"])
-@pytest.mark.parametrize("shape", [(4, 4), (64, 64)])
-def test_redesigned_kernels_on_saturated_content(shape, content, size,
+@pytest.mark.parametrize("ci", range(17))
+def test_redesigned_kernels_on_saturated_content(ci, content, size,
                                                  max_performance):
-    """The one-thread-per-CU 4x4 kernel and the 8-threads-per-(CU, mode)
-    64x64 kernel against their plain versions on saturated frames."""
+    """Every class's kernel against its plain version on saturated
+    frames."""
     width, height = size
     frames = _saturated(content, width, height)
-    run = next(r for r in tce.class_runs(width, height, frames.device)
-               if (r.plan.shape.width, r.plan.shape.height) == shape)
+    run = tce.class_runs(width, height, frames.device)[ci]
     n_ctu = num_ctus(width, height)[2]
     outs = [[torch.full((2, n_ctu, tce.PER_CTU), -1, dtype=torch.int32,
                         device="cuda")
@@ -108,6 +107,34 @@ def test_redesigned_kernels_on_saturated_content(shape, content, size,
     run.kernel.plain(*args, outs[1])
     torch.cuda.synchronize()
     for k, p in zip(*outs):
+        assert torch.equal(k, p), f"{int((k != p).sum())} entries differ"
+
+
+@pytest.mark.parametrize("max_performance", [True, False])
+@pytest.mark.parametrize("ci", range(17))
+def test_kernel_with_misaligned_outputs(ci, max_performance):
+    """Outputs one int32 off 16-byte alignment (views one element into a
+    flat buffer) and frames one int16 off 8-byte alignment: the kernels'
+    scalar loads and stores against the plain version."""
+    width, height = 608, 192
+    frames, ref, halo = _inputs(width, height, seed=ci + 40)
+    shifted = torch.empty(frames.numel() + 1, dtype=torch.int16,
+                          device="cuda")[1:].view(frames.shape)
+    shifted.copy_(frames)
+    run = tce.class_runs(width, height, frames.device)[ci]
+    shape = (2, num_ctus(width, height)[2], tce.PER_CTU)
+    n = int(np.prod(shape))
+    n_out = 1 if max_performance else 2
+    outs_k = [torch.full((n + 1,), -1, dtype=torch.int32,
+                         device="cuda")[1:].view(shape) for _ in range(n_out)]
+    outs_p = [torch.full(shape, -1, dtype=torch.int32, device="cuda")
+              for _ in range(n_out)]
+    assert all(o.data_ptr() % 16 == 4 for o in outs_k)
+    args = (shifted, ref, halo, False, run.plan, run.table, run.weights)
+    run.kernel(*args, outs_k)
+    run.kernel.plain(*args, outs_p)
+    torch.cuda.synchronize()
+    for k, p in zip(outs_k, outs_p):
         assert torch.equal(k, p), f"{int((k != p).sum())} entries differ"
 
 

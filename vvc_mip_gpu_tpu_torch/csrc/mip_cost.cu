@@ -27,7 +27,7 @@
 //                         role of rowband.py:90 _kernel_rowband (16x8, 8x16,
 //                         16x16, 16x32)
 // All three serve the role of gather.py:64 (fetch_rows, the left-boundary
-// relayout): each thread reads its CU's left column from the frame itself.
+// relayout): each block reads its CUs' left columns from the frame itself.
 // The TPU's bf16 limb split of the prediction and its %4-grouped sample
 // orders were Mosaic/MXU devices and have no counterpart here.
 //
@@ -35,17 +35,54 @@
 // int32 operations and moves well under 1 GB, so the kernels sit far above
 // the H100's ops-per-byte line.  An SM issues at most 128 integer results
 // a clock, 64 on each of two pipes: IMAD on the FMA pipe; add, logic,
-// shift, abs and min/max on the integer pipe.  No prediction, upsampled
-// block or difference ever reaches device memory.  No floats anywhere; all
-// shifts are arithmetic shifts of signed int32 values.  Three thread
-// mappings:
+// shift, abs and min/max on the integer pipe.  Per sample the costs need
+// ~7 integer-pipe operations (difference, SAD's abs and add, the two
+// butterfly passes, SATD's abs and add) and the upsampling a multiply-add
+// and a shift, so the integer pipe sets the pace wherever the per-CU and
+// per-mode work is done once and not once per sample.  No prediction,
+// upsampled block or difference ever reaches device memory.  No floats
+// anywhere; all shifts are arithmetic shifts of signed int32 values.
+// Three thread mappings:
 //
-// * mip_cost_body (15 classes: SizeId 1 and SizeId 2 up to 32x32): one
-//   thread per (CU, mode), the mode index fastest, so a warp covers one to
-//   three CUs and its loads of the original window are near-broadcasts
-//   served from L1; each thread keeps its reduced prediction in shared
-//   memory (one column per thread, bank-conflict free) and makes upsampled
-//   samples on demand per 4x4 block.
+// * mip_cost_tile (mip_cost_sid1_kernel, all 7 classes; mip_cost_sid2_kernel
+//   below 64x64, 8 classes): a block of G = 16 / NS CUs, NS = W / 4
+//   four-column strips a CU, one thread per (CU, normal-wing mode m,
+//   strip), which takes both wings (modes m and M + m): 128 threads a
+//   block for SizeId 1, 96 for SizeId 2.  One thread per (CU, mode), as
+//   before, repeated the per-CU work 2M times (clamped boundary loads with
+//   their edge branches, the boundary reduction, one clamped global load
+//   per original sample), remade both horizontal interpolations of every
+//   upsampled sample for each vertical phase, and gave 32x32 only ~415 k
+//   threads per 1080p batch of 16, each a 1024-sample serial loop.  Here
+//   the block stages its CUs' windows (clamped once, 8-byte row loads,
+//   int32; the per-CU stride padded by NS 16-byte chunks so that the CUs a
+//   warp spans fall on distinct banks), their raw top rows and left
+//   columns (the edge rules applied once per element) and the weights, as
+//   int8 (they are 0..127), in shared memory; reduces each CU's boundaries
+//   once; and computes the R x R prediction of every (CU, mode) once, into
+//   shared memory as int16.  A prediction item is (weight row, CU): the G
+//   lanes of one row share its 8-byte load, the item makes both wings from
+//   it (the transposed wing is a transposed store), and DP2A makes two of
+//   the C = 8 products an instruction, the offsets packed as int16 pairs.
+//   Each thread then walks its strip top to bottom, one wing after the
+//   other: per anchor row it makes the 4 horizontal values once (from 1-3
+//   anchors, or the raw left sample at row (k+1)*UP_V-1) and reuses them
+//   for all UP_V vertical phases as (UP_V*before + UP_V/2 + o*(after -
+//   before)) >> log2(UP_V), one multiply-add and a shift a sample; the
+//   unused pass of UP_H == 1 or UP_V == 1 drops out at compile time.  It
+//   reads 4 window samples per 16-byte shared load; the NS partial SADs
+//   and SATDs are summed with warp shuffles, and the block's G x 2M costs
+//   go out from shared memory as 16-byte stores where the output is
+//   aligned (a scalar fallback where not).  What bounds it is the issue
+//   rate of integer instructions: ~9-10 a sample for the costs and the
+//   upsampling, and, on the small classes, the staging, 4 barriers and the
+//   prediction (64 rows a (CU, mode) for SizeId 2) over few samples a
+//   thread.  Taking both wings in a thread halves the per-thread setup,
+//   staging and shuffles a sample; the wing loop is not unrolled (two
+//   unrolled strips scheduled together need twice the registers), and
+//   the 4-wide classes walk their strip as a loop over groups of anchor
+//   rows (unrolled, ptxas hoists all their window loads: up to 231
+//   registers).
 // * mip_cost_4x4 (mip_cost_sid0_kernel<4,4>, distortion.py:210
 //   _kernel_sid0): one thread per CU, all 32 modes in its loop.  With one
 //   thread per (CU, mode) the per-CU work (16 window and 8 boundary loads
@@ -62,17 +99,13 @@
 //   shifts, abs and min/max (clip is one DPX instruction) share the other.
 // * mip_cost_64x64 (mip_cost_sid2_kernel<64,64>, distortion.py:400
 //   _kernel): one block per CU, 8 threads per (CU, mode), one per anchor
-//   band of 8 rows.  With one thread per (CU, mode) this class had only
-//   ~104 k threads per 1080p batch of 16, each a 4096-sample serial loop
-//   that made every upsampled sample from scratch (two horizontal
-//   interpolations and ~4 shared loads per sample).  Here the block stages
-//   the CU's window (clamped once, coalesced, int32, bank-swizzled) and
-//   boundaries in shared memory and computes the 12 x 64 reduced
-//   prediction there once; each thread upsamples separably, making the
-//   horizontal values of its two anchor rows once per 4-column chunk and
-//   reusing them for all 8 vertical phases (an IMAD and a shift per
-//   sample), reads 4 window samples per 16-byte shared load, and the 8
-//   partial SADs and SATDs are summed with warp shuffles.
+//   band of 8 rows.  The block stages the CU's window (clamped once,
+//   coalesced, int32, bank-swizzled) and boundaries in shared memory and
+//   computes the 12 x 64 reduced prediction there once; each thread
+//   upsamples separably as mip_cost_tile does, reads 4 window samples per
+//   16-byte shared load, and the 8 partial SADs and SATDs are summed with
+//   warp shuffles.  Its bands of 8 rows read the same chunk of rows 8
+//   apart, hence the XOR swizzle of its window.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -165,13 +198,6 @@ __device__ __forceinline__ Slab frame_slab(const Args& a, int b) {
 // clip(p, 0, 1023) in one instruction: max(min(p, 1023), 0) (sm_90 DPX)
 __device__ __forceinline__ int clip_sample(int p) { return __vimin_s32_relu(p, kSampleMax); }
 
-// VVC linear interpolation at phase o in 1..UP between two anchors
-// (intra.cl:815-895); UP == 1 returns the anchor.
-template <int UP>
-__device__ __forceinline__ int interp(int before, int after, int o) {
-  return ((UP - o) * before + o * after + (UP >> 1)) >> ilog2(UP);
-}
-
 __device__ __forceinline__ void hadamard4(int& a, int& b, int& c, int& d) {
   const int s0 = a + b, s1 = c + d, d0 = a - b, d1 = c - d;
   a = s0 + s1;
@@ -192,130 +218,6 @@ __device__ __forceinline__ int satd4x4(int (&d)[16]) {
   for (int i = 0; i < 16; ++i) acc += abs(d[i]);
   const int dc = abs(d[0]);
   return (acc - dc + (dc >> 2) + 1) >> 1;
-}
-
-template <int W, int H, int SID>
-__device__ __forceinline__ void mip_cost_body(const Args& a) {
-  using P = SizeId<SID>;
-  constexpr int R = P::R, BS = P::BS, M = P::M;
-  constexpr int TWO_M = 2 * M, S = R * R, C = 2 * BS;
-  constexpr int UP_H = W / R, UP_V = H / R;
-  constexpr int DS_T = W / BS, DS_L = H / BS;
-  // Per-mode stride of the weights in shared memory: one word of padding
-  // puts the different modes of a warp on different banks.
-  constexpr int WSTRIDE = S * C + 1;
-  static_assert(W % R == 0 && H % R == 0 && W % 4 == 0 && H % 4 == 0, "CU shape");
-  static_assert(W % BS == 0 && H % BS == 0, "boundary size");
-
-  __shared__ int32_t w_s[M * WSTRIDE];
-  __shared__ int16_t pred_s[S * kThreads];
-
-  for (int i = threadIdx.x; i < M * S * C; i += kThreads) {
-    w_s[(i / (S * C)) * WSTRIDE + i % (S * C)] = __ldg(a.weights + i);
-  }
-  __syncthreads();
-
-  const int item = blockIdx.x * kThreads + threadIdx.x;
-  if (item >= a.n_cu * TWO_M) return;
-  const int cu = item / TWO_M;
-  const int m = item - cu * TWO_M;
-  const int y0 = __ldg(a.table + 3 * cu);
-  const int x0 = __ldg(a.table + 3 * cu + 1);
-  const int off = __ldg(a.table + 3 * cu + 2);
-  const int b = blockIdx.y;
-  const Slab slab = frame_slab(a, b);
-
-  // ---- 1-2. boundaries, reduced to BS samples a side
-  int red_t[BS], red_l[BS];
-#pragma unroll
-  for (int i = 0; i < BS; ++i) {
-    int st = 0, sl = 0;
-#pragma unroll
-    for (int k = 0; k < DS_T; ++k) st += slab.top(y0, x0, i * DS_T + k);
-#pragma unroll
-    for (int k = 0; k < DS_L; ++k) sl += slab.left(y0, x0, i * DS_L + k);
-    red_t[i] = DS_T > 1 ? (st + (DS_T >> 1)) >> ilog2(DS_T) : st;
-    red_l[i] = DS_L > 1 ? (sl + (DS_L >> 1)) >> ilog2(DS_L) : sl;
-  }
-
-  // ---- 3. reduced prediction of this thread's mode: (top, left) inputs
-  // for the normal wing, (left, top) and transposed output for the other.
-  const bool transposed = m >= M;
-  const int mode = transposed ? m - M : m;
-  int offs[C];
-#pragma unroll
-  for (int i = 0; i < BS; ++i) {
-    offs[i] = transposed ? red_l[i] : red_t[i];
-    offs[BS + i] = transposed ? red_t[i] : red_l[i];
-  }
-  const int first = offs[0];
-  offs[0] = SID < 2 ? kValueDC - first : 0;
-  int sum = offs[0];
-#pragma unroll
-  for (int c = 1; c < C; ++c) {
-    offs[c] -= first;
-    sum += offs[c];
-  }
-  const int bias = (1 << (kShift - 1)) - kOffset * sum;
-  const int32_t* wm = w_s + mode * WSTRIDE;
-  int16_t* pred = pred_s + threadIdx.x;
-#pragma unroll 4
-  for (int s = 0; s < S; ++s) {
-    const int sp = transposed ? (s % R) * R + s / R : s;  // r x r transposition
-    int acc = bias;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc += wm[sp * C + c] * offs[c];
-    const int p = (acc >> kShift) + first;
-    pred[s * kThreads] = (int16_t)min(max(p, 0), kSampleMax);
-  }
-
-  // ---- 4. upsampled prediction sample (y, x), made on demand
-  auto anchor = [&](int k, int j) -> int { return pred[(k * R + j) * kThreads]; };
-  auto hor = [&](int k, int x) -> int {  // anchor row k, upsampled along x
-    if (UP_H == 1) return anchor(k, x);
-    const int j = x / UP_H, o = x % UP_H + 1;
-    const int after = anchor(k, j);
-    if (o == UP_H) return after;
-    const int before = j ? anchor(k, j - 1) : slab.left(y0, x0, (k + 1) * UP_V - 1);
-    return interp<UP_H>(before, after, o);
-  };
-  auto upsampled = [&](int y, int x) -> int {
-    if (UP_V == 1) return hor(y, x);
-    const int k = y / UP_V, o = y % UP_V + 1;
-    const int after = hor(k, x);
-    if (o == UP_V) return after;
-    const int before = k ? hor(k - 1, x) : slab.top(y0, x0, x);
-    return interp<UP_V>(before, after, o);
-  };
-
-  // ---- 5. SAD and SATD over the CU's 4x4 blocks
-  int sad = 0, satd = 0;
-#pragma unroll 1
-  for (int by = 0; by < H / 4; ++by) {
-#pragma unroll 1
-    for (int bx = 0; bx < W / 4; ++bx) {
-      int d[16];
-#pragma unroll
-      for (int dy = 0; dy < 4; ++dy) {
-#pragma unroll
-        for (int dx = 0; dx < 4; ++dx) {
-          const int y = 4 * by + dy, x = 4 * bx + dx;
-          d[4 * dy + dx] = slab.orig_at(y0 + y, x0 + x) - upsampled(y, x);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 16; ++i) sad += abs(d[i]);
-      satd += satd4x4(d);
-    }
-  }
-
-  const long long at = (long long)b * a.out_stride + off + m;
-  if (a.out1 != nullptr) {
-    a.out0[at] = sad;
-    a.out1[at] = satd;
-  } else {
-    a.out0[at] = min(2 * sad, satd);
-  }
 }
 
 // One wing's reduced-prediction inputs: the C offsets against the first
@@ -352,6 +254,24 @@ struct Wing {
     }
     return clip_sample(acc >> kShift);
   }
+  // The same from one row of int8 weights (C == 8, 8 bytes): 2 products a
+  // DP2A instruction, the offsets packed as int16 pairs (|off| <= 1023).
+  // SizeId 2's first offset is 0, so its unused weight adds nothing.
+  __device__ __forceinline__ int predict8(const uint2 w, const int (&packed)[4]) const {
+    int acc = bias;
+    acc = __dp2a_lo(packed[0], (int)w.x, acc);
+    acc = __dp2a_hi(packed[1], (int)w.x, acc);
+    acc = __dp2a_lo(packed[2], (int)w.y, acc);
+    acc = __dp2a_hi(packed[3], (int)w.y, acc);
+    return clip_sample(acc >> kShift);
+  }
+  __device__ __forceinline__ void pack(int (&packed)[4]) const {
+    static_assert(C == 8, "int8 rows of 8 weights");
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      packed[k] = (int)(((unsigned)off[2 * k] & 0xffffu) | ((unsigned)off[2 * k + 1] << 16));
+    }
+  }
 };
 
 // SAD and SATD of one 4x4 prediction against the window, both raster.
@@ -375,6 +295,10 @@ __device__ __forceinline__ void store4(int32_t* out, long long at, bool vec,
 #pragma unroll
     for (int i = 0; i < 4; ++i) out[at + i] = v[i];
   }
+}
+
+__device__ __forceinline__ bool aligned16(const int32_t* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // The 4x4 class: one thread per CU, its 2M = 32 modes in a loop.
@@ -412,8 +336,7 @@ __device__ __forceinline__ void mip_cost_4x4(const Args& a) {
   // transposed wing's sample s lands at its r x r transposition
   const long long at = (long long)b * a.out_stride + off;
   const bool two = a.out1 != nullptr;
-  const bool vec = (reinterpret_cast<uintptr_t>(a.out0 + at) & 15) == 0 &&
-                   (!two || (reinterpret_cast<uintptr_t>(a.out1 + at) & 15) == 0);
+  const bool vec = aligned16(a.out0 + at) && (!two || aligned16(a.out1 + at));
 #pragma unroll 1
   for (int m0 = 0; m0 < M; m0 += 4) {
     int c0[2][4], c1[2][4];  // [wing][mode - m0]: msh or SAD, and SATD
@@ -438,6 +361,255 @@ __device__ __forceinline__ void mip_cost_4x4(const Args& a) {
     for (int wing = 0; wing < 2; ++wing) {
       store4(a.out0, at + wing * M + m0, vec, c0[wing]);
       if (two) store4(a.out1, at + wing * M + m0, vec, c1[wing]);
+    }
+  }
+}
+
+// The geometry of one mip_cost_tile class.
+template <int W, int H, int SID>
+struct Tile {
+  using P = SizeId<SID>;
+  static constexpr int R = P::R, BS = P::BS, M = P::M;
+  static constexpr int TWO_M = 2 * M, S = R * R, C = 2 * BS;
+  static constexpr int UP_H = W / R, UP_V = H / R;  // upsampling factors
+  static constexpr int DS_T = W / BS, DS_L = H / BS;  // boundary downsampling
+  static constexpr int NS = W / 4;                  // 4-column strips a CU
+  static constexpr int G = 16 / NS;                 // CUs a block
+  static constexpr int NT = G * M * NS;             // threads a block: 128 or 96
+  static constexpr int WS = W * H + 4 * NS;         // window stride a CU (padded)
+  static constexpr int PS = S + 4;                  // prediction stride a (CU, mode)
+  static constexpr int CS = TWO_M * PS + 8;         // prediction stride a CU (padded)
+  static constexpr int BND = W + H;                 // raw top row, then left column
+  static constexpr int SMEM =
+      M * S * C + 4 * (G * WS + G * BND + G * C + 2 * G * TWO_M) + 2 * G * CS;
+  static_assert(W % R == 0 && H % R == 0 && W % BS == 0 && H % BS == 0, "CU shape");
+  static_assert(NS >= 1 && NS <= 8 && 16 % NS == 0 && NT % 32 == 0, "strip mapping");
+  static_assert(TWO_M % 4 == 0 && S % NS == 0 && G * TWO_M / 4 <= NT && C == 8,
+                "items, stores, int8 weight rows");
+  static_assert(SMEM <= 48 * 1024, "static shared memory");
+};
+
+// Horizontal values of one anchor row at columns 4s..4s+3 (VVC linear
+// interpolation, intra.cl:815-895, as (UP*before + UP/2 + o*(after -
+// before)) >> log2(UP), the same integer as ((UP - o)*before + o*after +
+// UP/2) >> log2(UP)).  `row` holds the anchors as int16 (0..1023); `lb`
+// is the raw left sample of the row: the "before" of the first anchor
+// column.
+template <int UP_H>
+__device__ __forceinline__ void hor4(const int16_t* row, int lb, int s, int (&v)[4]) {
+  if constexpr (UP_H == 1) {
+    const uint2 u = *reinterpret_cast<const uint2*>(row + 4 * s);
+    v[0] = (int)(u.x & 0xffffu);
+    v[1] = (int)(u.x >> 16);
+    v[2] = (int)(u.y & 0xffffu);
+    v[3] = (int)(u.y >> 16);
+  } else if constexpr (UP_H == 2) {
+    const unsigned u = *reinterpret_cast<const unsigned*>(row + 2 * s);
+    const int a0 = (int)(u & 0xffffu), a1 = (int)(u >> 16);
+    const int before = s ? row[2 * s - 1] : lb;
+    v[0] = (before + a0 + 1) >> 1;
+    v[1] = a0;
+    v[2] = (a0 + a1 + 1) >> 1;
+    v[3] = a1;
+  } else {  // the 4 columns lie in one anchor interval j, phases o0+1..o0+4
+    constexpr int SH = ilog2(UP_H);
+    const int j = (4 * s) >> SH, o0 = (4 * s) & (UP_H - 1);
+    const int after = row[j], before = j ? row[j - 1] : lb;
+    const int base = UP_H * before + (UP_H >> 1), dlt = after - before;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = (base + (o0 + i + 1) * dlt) >> SH;
+  }
+}
+
+// SAD and SATD of strip s (columns 4s..4s+3) of one (CU, mode), top to
+// bottom: per anchor row k its horizontal values, then the UP_V rows
+// between anchor rows k-1 (the raw top row for k = 0) and k.
+template <int W, int H, int SID>
+__device__ __forceinline__ void strip_costs(const int16_t* anc, const int32_t* top,
+                                            const int32_t* left, const int32_t* win, int s,
+                                            int& sad, int& satd) {
+  using T = Tile<W, H, SID>;
+  constexpr int R = T::R, UP_H = T::UP_H, UP_V = T::UP_V;
+  // Anchor rows go in groups of KG that cover whole rows of 4x4 blocks.
+  // A 4-wide class's strip is its whole CU: fully unrolled, ptxas hoists
+  // every window row's load to the top (up to 231 registers), so its
+  // groups run as a loop.
+  constexpr int KG = UP_V >= 4 ? 1 : 4 / UP_V;
+  constexpr int GROUPS = T::NS == 1 ? 1 : R / KG;  // groups unrolled
+  static_assert(KG * UP_V % 4 == 0 && R % KG == 0, "anchor groups");
+  int prev[4];
+  if constexpr (UP_V > 1) {
+    const int4 t4 = *reinterpret_cast<const int4*>(top + 4 * s);
+    prev[0] = t4.x;
+    prev[1] = t4.y;
+    prev[2] = t4.z;
+    prev[3] = t4.w;
+  }
+  sad = 0;
+  satd = 0;
+  int d[16];
+#pragma unroll (GROUPS)
+  for (int g = 0; g < R / KG; ++g) {
+#pragma unroll
+    for (int kk = 0; kk < KG; ++kk) {
+      const int k = g * KG + kk;
+      int cur[4];
+      hor4<UP_H>(anc + k * R, left[(k + 1) * UP_V - 1], s, cur);
+      int base[4], dlt[4];
+      if constexpr (UP_V > 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          base[i] = UP_V * prev[i] + (UP_V >> 1);
+          dlt[i] = cur[i] - prev[i];
+          prev[i] = cur[i];
+        }
+      }
+#pragma unroll
+      for (int o = 1; o <= UP_V; ++o) {
+        const int yb = (kk * UP_V + o - 1) % 4;  // row in its 4x4 block
+        const int4 o4 = *reinterpret_cast<const int4*>(win + (k * UP_V + o - 1) * W);
+        const int org[4] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int p = o == UP_V ? cur[i] : (base[i] + o * dlt[i]) >> ilog2(UP_V);
+          d[4 * yb + i] = org[i] - p;
+        }
+        if (yb == 3) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) sad += abs(d[i]);
+          satd += satd4x4(d);
+        }
+      }
+    }
+  }
+}
+
+// SizeId 1, and SizeId 2 below 64x64: a block of G CUs, one thread per
+// (CU, mode of the normal wing, 4-column strip), both wings.
+template <int W, int H, int SID>
+__device__ __forceinline__ void mip_cost_tile(const Args& a) {
+  using T = Tile<W, H, SID>;
+  constexpr int R = T::R, BS = T::BS, M = T::M, TWO_M = T::TWO_M, S = T::S, C = T::C;
+  constexpr int DS_T = T::DS_T, DS_L = T::DS_L, NS = T::NS, G = T::G, NT = T::NT;
+  constexpr int WS = T::WS, PS = T::PS, CS = T::CS, BND = T::BND;
+  constexpr int Q = W / 4;  // 4-sample chunks a window row
+  __shared__ __align__(16) uint32_t w8_s[M * S * C / 4];  // int8 weights, 4 a word
+  __shared__ __align__(16) int32_t win_s[G * WS];   // [cu][y][x], int32
+  __shared__ __align__(16) int16_t anc_s[G * CS];   // [cu][mode][k][j]
+  __shared__ __align__(16) int32_t bnd_s[G * BND];  // [cu][top W, left H]
+  __shared__ int32_t red_s[G * C];                  // [cu][reduced top, left]
+  __shared__ __align__(16) int32_t res_s[2 * G * TWO_M];  // [out][cu][mode]
+
+  const int tid = threadIdx.x, b = blockIdx.y, cu0 = blockIdx.x * G;
+  const Slab slab = frame_slab(a, b);
+
+  // ---- 1. weights, windows and raw boundaries into shared memory, the
+  // clamping and edge rules applied once per element.  A tail block
+  // repeats the last CU in its unused places and stores nothing for them.
+  const bool w16 = (reinterpret_cast<uintptr_t>(a.weights) & 15) == 0;
+  for (int i = tid; i < M * S * C / 4; i += NT) {  // the weights are 0..127
+    const int4 v = w16 ? __ldg(reinterpret_cast<const int4*>(a.weights) + i)
+                       : make_int4(__ldg(a.weights + 4 * i), __ldg(a.weights + 4 * i + 1),
+                                   __ldg(a.weights + 4 * i + 2), __ldg(a.weights + 4 * i + 3));
+    w8_s[i] = (unsigned)v.x | (unsigned)v.y << 8 | (unsigned)v.z << 16 | (unsigned)v.w << 24;
+  }
+  for (int i = tid; i < H * G * Q; i += NT) {  // row-major over (y, cu, chunk)
+    const int q = i % Q, c = (i / Q) % G, y = i / (Q * G);
+    const int cu = min(cu0 + c, a.n_cu - 1);
+    int v[4];
+    slab.orig4(__ldg(a.table + 3 * cu) + y, __ldg(a.table + 3 * cu + 1) + 4 * q, v);
+    *reinterpret_cast<int4*>(win_s + c * WS + y * W + 4 * q) = make_int4(v[0], v[1], v[2], v[3]);
+  }
+  for (int i = tid; i < G * BND; i += NT) {
+    const int c = i / BND, e = i % BND;
+    const int cu = min(cu0 + c, a.n_cu - 1);
+    const int y0 = __ldg(a.table + 3 * cu), x0 = __ldg(a.table + 3 * cu + 1);
+    bnd_s[i] = e < W ? slab.top(y0, x0, e) : slab.left(y0, x0, e - W);
+  }
+  __syncthreads();
+
+  // ---- 2. each CU's boundaries reduced to BS samples a side, once
+  if (tid < G * C) {
+    const int c = tid / C, i = tid % C;
+    const int32_t* src = bnd_s + c * BND;
+    int sum = 0;
+    if (i < BS) {
+#pragma unroll
+      for (int k = 0; k < DS_T; ++k) sum += src[i * DS_T + k];
+      red_s[tid] = (sum + (DS_T >> 1)) >> ilog2(DS_T);
+    } else {
+#pragma unroll
+      for (int k = 0; k < DS_L; ++k) sum += src[W + (i - BS) * DS_L + k];
+      red_s[tid] = (sum + (DS_L >> 1)) >> ilog2(DS_L);
+    }
+  }
+  __syncthreads();
+
+  // ---- 3. the R x R prediction of every (CU, mode), once.  Item
+  // (mode * S + row) * G + cu: the G lanes of one weight row share its
+  // 16-byte loads, and each item makes both wings from them; the
+  // transposed wing's sample of row (j, k) is (k, j).
+  {
+    const int c = tid % G, ms0 = tid / G;
+    int bnd_n[C], bnd_t[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      bnd_n[i] = red_s[c * C + i];
+      bnd_t[i] = red_s[c * C + (i + BS) % C];
+    }
+    const Wing<SID, C> wn(bnd_n), wt(bnd_t);
+    int pn[4], pt[4];
+    wn.pack(pn);
+    wt.pack(pt);
+    int16_t* anc = anc_s + c * CS;
+#pragma unroll 4
+    for (int n = 0; n < S / NS; ++n) {
+      const int ms = ms0 + n * (M * NS);
+      const int mode = ms / S, w = ms % S;
+      const uint2 wr = reinterpret_cast<const uint2*>(w8_s)[ms];
+      anc[mode * PS + w] = (int16_t)wn.predict8(wr, pn);
+      anc[(M + mode) * PS + (w % R) * R + w / R] = (int16_t)wt.predict8(wr, pt);
+    }
+  }
+  __syncthreads();
+
+  // ---- 4-5. strip s of (CU c, mode m) in both wings; the NS strips of a
+  // (CU, mode) are NS neighbouring lanes
+  // (a loop, not unrolled: the two wings' unrolled strips would be
+  // scheduled together at twice the registers)
+  const int s = tid % NS, m = (tid / NS) % M, c = tid / (NS * M);
+  const int32_t* top = bnd_s + c * BND;
+  const int32_t* win = win_s + c * WS + 4 * s;
+  const bool two = a.out1 != nullptr;
+#pragma unroll 1
+  for (int wing = 0; wing < 2; ++wing) {
+    int sad, satd;
+    strip_costs<W, H, SID>(anc_s + c * CS + (wing * M + m) * PS, top, top + W, win, s, sad,
+                           satd);
+#pragma unroll
+    for (int sh = 1; sh < NS; sh <<= 1) {
+      sad += __shfl_xor_sync(0xffffffffu, sad, sh);
+      satd += __shfl_xor_sync(0xffffffffu, satd, sh);
+    }
+    if (s == 0) {
+      const int j = c * TWO_M + wing * M + m;
+      res_s[j] = two ? sad : min(2 * sad, satd);
+      res_s[G * TWO_M + j] = satd;
+    }
+  }
+  __syncthreads();
+
+  // ---- the block's G x 2M costs (or SADs and SATDs), 4 modes a store
+  if (tid < G * TWO_M / 4 && cu0 + tid / (TWO_M / 4) < a.n_cu) {
+    const int cu = cu0 + tid / (TWO_M / 4);
+    const long long at = (long long)b * a.out_stride + __ldg(a.table + 3 * cu + 2) +
+                         4 * (tid % (TWO_M / 4));
+    const bool vec = aligned16(a.out0 + at) && (!two || aligned16(a.out1 + at));
+    const int4 r0 = reinterpret_cast<const int4*>(res_s)[tid];
+    store4(a.out0, at, vec, {r0.x, r0.y, r0.z, r0.w});
+    if (two) {
+      const int4 r1 = reinterpret_cast<const int4*>(res_s + G * TWO_M)[tid];
+      store4(a.out1, at, vec, {r1.x, r1.y, r1.z, r1.w});
     }
   }
 }
@@ -582,7 +754,7 @@ __global__ void __launch_bounds__(kThreads) mip_cost_sid0_kernel(Args a) {
 
 template <int W, int H>
 __global__ void __launch_bounds__(kThreads) mip_cost_sid1_kernel(Args a) {
-  mip_cost_body<W, H, 1>(a);
+  mip_cost_tile<W, H, 1>(a);
 }
 
 template <int W, int H>
@@ -590,7 +762,7 @@ __global__ void __launch_bounds__(kThreads) mip_cost_sid2_kernel(Args a) {
   if constexpr (W == 64 && H == 64) {
     mip_cost_64x64(a);
   } else {
-    mip_cost_body<W, H, 2>(a);
+    mip_cost_tile<W, H, 2>(a);
   }
 }
 
@@ -609,12 +781,13 @@ int launch(const int16_t* orig, const int16_t* ref, const int16_t* halo,
   } else if constexpr (SID == 2 && W == 64 && H == 64) {
     mip_cost_sid2_kernel<W, H><<<dim3((unsigned)n_cu, (unsigned)batch), kThreads64, 0, s>>>(a);
   } else {
-    const long long items = (long long)n_cu * 2 * SizeId<SID>::M;
-    const dim3 grid((unsigned)((items + kThreads - 1) / kThreads), (unsigned)batch);
+    using T = Tile<W, H, SID>;
+    static_assert(T::NT == 16 * SizeId<SID>::M && T::NT <= kThreads, "launch bounds");
+    const dim3 grid((unsigned)((n_cu + T::G - 1) / T::G), (unsigned)batch);
     if constexpr (SID == 1) {
-      mip_cost_sid1_kernel<W, H><<<grid, kThreads, 0, s>>>(a);
+      mip_cost_sid1_kernel<W, H><<<grid, T::NT, 0, s>>>(a);
     } else {
-      mip_cost_sid2_kernel<W, H><<<grid, kThreads, 0, s>>>(a);
+      mip_cost_sid2_kernel<W, H><<<grid, T::NT, 0, s>>>(a);
     }
   }
   return (int)cudaGetLastError();
