@@ -32,7 +32,15 @@ of the port's paths through the entry points a user calls, all at
   filtered reference;
 - (e) the port's CLI in-process (filtered, full report, target CTU, two
   frames) into a temporary directory, its CSVs checked against the card's
-  costs and deleted.
+  costs;
+- (f) the multi-device engines on this one card: the sharded engine
+  (meshes (1, 1) and (2, 2) on the main path's batch, and (1, 2) in the
+  filtered full report, whose bands meet at a filtered halo row) against
+  MipCostEngine on the edge-padded and on the true frames; the latency
+  engine on one frame with 1 part and with 4 parts on 4 streams, both
+  regimes; two CLI processes (gloo on localhost) with (e)'s flags, whose
+  CSVs must equal (e)'s byte for byte (then all are deleted); each timed
+  (ms per batch, single-frame latency host to host, CLI wall time).
 
 Every path runs with the launch counters set to 0 just before it and read
 just after, and fails unless each of its kernels launched.  It prints one
@@ -340,12 +348,13 @@ def phase_inspect(failures) -> int:
     return launches
 
 
-def phase_cli(card: str, failures) -> None:
-    """(e) the port's CLI in-process, into a temporary directory: the
+def phase_cli(card: str, tmp: str, failures) -> list[str]:
+    """(e) the port's CLI in-process, into the directory ``tmp``: the
     filtered regime, full report, a target CTU, two frames in one chunk.
     Checks each CSV's header and row count, and frame 0's decisions CSV
     and the target-CTU CSV byte for byte against a fresh export of the
-    card's costs; the files are deleted afterwards."""
+    card's costs.  The files stay for phase (f); returns the CLI's
+    arguments but the output prefix."""
     from vvc_mip_gpu_tpu_torch import cli
     from vvc_mip_gpu_tpu_torch.constants import num_ctus
     from vvc_mip_gpu_tpu_torch.io.export import (
@@ -358,70 +367,286 @@ def phase_cli(card: str, failures) -> None:
 
     n_ctu = num_ctus(MAIN_W, MAIN_H)[2]
     header = "POC,CTU,cuSizeName,W,H,CU,X,Y,Mode,SAD,SATD,minSadHad"
-    with tempfile.TemporaryDirectory() as tmp:
-        prefix = str(Path(tmp) / "cli_")
-        args = ["-f", "2", "-s", f"{MAIN_W}x{MAIN_H}", "--Synthetic",
-                "--FullDistortion", "--FilterType", FILTER[0],
-                "--KernelIdx", str(FILTER[1]), "--TargetCTU",
-                str(CLI_TARGET_CTU), "--BatchFrames", "2", "-l", prefix]
-        torch.cuda.synchronize()
-        for k in KERNELS:
-            k.launches = 0
+    prefix = str(Path(tmp) / "cli_")
+    args = ["-f", "2", "-s", f"{MAIN_W}x{MAIN_H}", "--Synthetic",
+            "--FullDistortion", "--FilterType", FILTER[0],
+            "--KernelIdx", str(FILTER[1]), "--TargetCTU",
+            str(CLI_TARGET_CTU), "--BatchFrames", "2", "-l", prefix]
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with open(Path(tmp) / "stdout.txt", "w") as out, \
+            contextlib.redirect_stdout(out):
+        rc = cli.main(args)
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    text = (Path(tmp) / "stdout.txt").read_text()
+    report = text[text.index("Stage timing report:"):].rstrip()
+    print(f"CLI {' '.join(args[:-2])}: rc {rc}, {wall:.2f} s wall, "
+          f"launches {launches} ({card})")
+    print(report)
+    if rc != 0 or list(launches.values()) != [1, 7, 9]:
+        failures.append(f"CLI rc {rc}, launches {launches}")
+    frames = torch.from_numpy(synthetic_frames(
+        2, MAIN_W, MAIN_H).astype(np.int32)).cuda()
+    costs = MipCostEngine(MAIN_W, MAIN_H).compute_batch(
+        frames, filter_frames(frames, *FILTER))
+    sad, satd, msh = (t.cpu().numpy() for t in (
+        costs.sad, costs.satd, costs.min_sad_had))
+    for name, rows in (("mip_decisions_poc0.csv", n_ctu * PER_CTU),
+                       ("mip_decisions_poc1.csv", n_ctu * PER_CTU),
+                       (f"target_ctu{CLI_TARGET_CTU}.csv", 2 * PER_CTU)):
+        path = Path(prefix + name)
+        got_header, got_rows = csv_shape(path)
+        ok = got_header == header and got_rows == rows
+        print(f"check CLI {name}: {got_rows} rows, "
+              f"{path.stat().st_size / 1e6:.1f} MB, header "
+              f"{'ok' if got_header == header else repr(got_header)}: "
+              f"{'ok' if ok else 'WRONG'}", flush=True)
+        if not ok:
+            failures.append(f"CLI {name}: header or rows wrong")
+    # the export layer alone: the card's costs of frame 0 and of the
+    # target CTU, written again, must give the CLI's files byte for
+    # byte (the exports equal the JAX package's bytes on the CPU)
+    again = Path(tmp) / "again.csv"
+    t0 = time.perf_counter()
+    export_decisions_csv(again, msh[0], MAIN_W, sad=sad[0],
+                         satd=satd[0], poc=0)
+    export_s = time.perf_counter() - t0
+    same = filecmp.cmp(again, prefix + "mip_decisions_poc0.csv",
+                       shallow=False)
+    print(f"export_decisions_csv of frame 0 (full report, "
+          f"{n_ctu * PER_CTU} rows): {export_s:.2f} s; equals the "
+          f"CLI's file: {same}", flush=True)
+    export_target_ctu_csv(
+        again, list(msh[:, CLI_TARGET_CTU]), MAIN_W, CLI_TARGET_CTU,
+        sad_per_frame=list(sad[:, CLI_TARGET_CTU]),
+        satd_per_frame=list(satd[:, CLI_TARGET_CTU]), pocs=[0, 1])
+    same_target = filecmp.cmp(
+        again, f"{prefix}target_ctu{CLI_TARGET_CTU}.csv", shallow=False)
+    print(f"export_target_ctu_csv of the card's costs equals the CLI's "
+          f"file: {same_target}", flush=True)
+    if not (same and same_target):
+        failures.append("CLI decisions or target CSV differs from the "
+                        "export of the card's costs")
+    again.unlink()
+    return args[:-2]
+
+
+def count_launches(fn):
+    """(fn's result, [launches of mip_cost_sid0, 1, 2] during fn): the
+    counters set to 0 just before, read just after a synchronize."""
+    from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
+
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [k.launches for k in KERNELS]
+
+
+def differing(got, want, fields, valid=None) -> list[str]:
+    """The fields of two FrameCosts that differ (on ``valid`` entries only
+    when given), compared on the card."""
+    bad = []
+    for field in fields:
+        a, b = getattr(got, field), getattr(want, field)
+        a, b = a.to(b.device), b
+        if a.shape != b.shape:
+            bad.append(f"{field} shape {tuple(a.shape)} vs {tuple(b.shape)}")
+        elif valid is None and not torch.equal(a, b):
+            bad.append(f"{field} ({int((a != b).sum())} entries)")
+        elif valid is not None and bool(((a != b) & valid).any()):
+            bad.append(f"{field} ({int(((a != b) & valid).sum())} valid "
+                       f"entries)")
+    return bad
+
+
+def phase_sharded(frames: torch.Tensor, main_msh: torch.Tensor, card: str,
+                  failures) -> dict:
+    """(f.1) ShardedMipCostEngine on this one card over the main path's
+    batch: the (1, 1) mesh and the (2, 2) mesh (four shards on four
+    streams, real halo rows) max-performance, then the (1, 2) mesh in the
+    filtered full report, whose band 1 reads band 0's last FILTERED row.
+    Each against MipCostEngine on the edge-padded frames (whole padded
+    tensors) and on the true frames (valid CUs of the true CTUs; the main
+    path's minSadHad for max-performance), its mask against
+    _validity_mask_np and its launches against n_shards x (1, 7, 9); then
+    timed.  Returns {mesh: ms per batch}."""
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import (
+        FrameCosts, MipCostEngine, _validity_mask)
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+    from vvc_mip_gpu_tpu_torch.parallel import ShardedMipCostEngine, make_mesh
+    from vvc_mip_gpu_tpu_torch.parallel.sharded_engine import (
+        _validity_mask_np)
+
+    dev = frames.device
+    valid = torch.from_numpy(_validity_mask(MAIN_W, MAIN_H)).to(dev)
+    n_ctu = valid.shape[0]
+    refs = filter_frames(frames, *FILTER)
+    full_true = MipCostEngine(MAIN_W, MAIN_H).compute_batch(frames, refs)
+    times = {}
+    for n_data, n_space, mp in ((1, 1, True), (2, 2, True), (1, 2, False)):
+        name = (f"({n_data}, {n_space}) "
+                f"{'max-performance' if mp else 'filtered full report'}")
+        mesh = make_mesh(n_data, n_space, [dev] * (n_data * n_space))
+        engine = ShardedMipCostEngine(MAIN_W, MAIN_H, mesh,
+                                      max_performance=mp)
+        ref = None if mp else refs
+        got, launches = count_launches(lambda: engine(frames, ref))
+        n = n_data * n_space
+        fields = ("min_sad_had",) if mp else ("sad", "satd", "min_sad_had")
+        padded = MipCostEngine(MAIN_W, engine.padded_height,
+                               max_performance=mp).compute_batch(
+            engine.pad_frames(frames),
+            None if mp else engine.pad_frames(refs))
+        bad = differing(got, padded, fields)
+        del padded
+        true = FrameCosts(None, None, main_msh, None) if mp else full_true
+        got_true = FrameCosts(*(None if t is None else t[:, :n_ctu] for t in (
+            got.sad, got.satd, got.min_sad_had)), None)
+        bad += [f"true CTUs: {b}" for b in differing(got_true, true, fields,
+                                                     valid)]
+        mask_ok = np.array_equal(got.valid.cpu().numpy(), _validity_mask_np(
+            MAIN_W, MAIN_H, engine.padded_height))
+        if not mask_ok:
+            bad.append("validity mask")
+        if launches != [n, 7 * n, 9 * n]:
+            bad.append(f"launches {launches}, want {[n, 7 * n, 9 * n]}")
+        if bad:
+            failures.append(f"sharded {name}: {bad}")
+        print(f"check sharded {name}, padded to {engine.padded_height} rows: "
+              f"launches {launches}; whole padded tensors vs MipCostEngine "
+              f"on edge-padded frames, valid CUs of the true CTUs vs "
+              f"MipCostEngine, mask: {'bit-exact' if not bad else bad}",
+              flush=True)
+        del got, got_true
+        ms = Timer(lambda: engine(frames, ref), TIMED_ITERS).ms
+        times[name] = ms
+        print(f"sharded {name}: {ms:.3f} ms per batch of {frames.shape[0]} "
+              f"({card})", flush=True)
+    return times
+
+
+def median_ms(fn, runs: int = 10) -> float:
+    """Median host-clock milliseconds of ``fn`` (which ends on the host)
+    over ``runs`` runs after two warm-up runs."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(runs):
         t0 = time.perf_counter()
-        with open(Path(tmp) / "stdout.txt", "w") as out, \
-                contextlib.redirect_stdout(out):
-            rc = cli.main(args)
-        wall = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in KERNELS}
-        text = (Path(tmp) / "stdout.txt").read_text()
-        report = text[text.index("Stage timing report:"):].rstrip()
-        print(f"CLI {' '.join(args[:-2])}: rc {rc}, {wall:.2f} s wall, "
-              f"launches {launches} ({card})")
-        print(report)
-        if rc != 0 or list(launches.values()) != [1, 7, 9]:
-            failures.append(f"CLI rc {rc}, launches {launches}")
-        frames = torch.from_numpy(synthetic_frames(
-            2, MAIN_W, MAIN_H).astype(np.int32)).cuda()
-        costs = MipCostEngine(MAIN_W, MAIN_H).compute_batch(
-            frames, filter_frames(frames, *FILTER))
-        sad, satd, msh = (t.cpu().numpy() for t in (
-            costs.sad, costs.satd, costs.min_sad_had))
-        for name, rows in (("mip_decisions_poc0.csv", n_ctu * PER_CTU),
-                           ("mip_decisions_poc1.csv", n_ctu * PER_CTU),
-                           (f"target_ctu{CLI_TARGET_CTU}.csv", 2 * PER_CTU)):
-            path = Path(prefix + name)
-            got_header, got_rows = csv_shape(path)
-            ok = got_header == header and got_rows == rows
-            print(f"check CLI {name}: {got_rows} rows, "
-                  f"{path.stat().st_size / 1e6:.1f} MB, header "
-                  f"{'ok' if got_header == header else repr(got_header)}: "
-                  f"{'ok' if ok else 'WRONG'}", flush=True)
-            if not ok:
-                failures.append(f"CLI {name}: header or rows wrong")
-        # the export layer alone: the card's costs of frame 0 and of the
-        # target CTU, written again, must give the CLI's files byte for
-        # byte (the exports equal the JAX package's bytes on the CPU)
-        again = Path(tmp) / "again.csv"
-        t0 = time.perf_counter()
-        export_decisions_csv(again, msh[0], MAIN_W, sad=sad[0],
-                             satd=satd[0], poc=0)
-        export_s = time.perf_counter() - t0
-        same = filecmp.cmp(again, prefix + "mip_decisions_poc0.csv",
-                           shallow=False)
-        print(f"export_decisions_csv of frame 0 (full report, "
-              f"{n_ctu * PER_CTU} rows): {export_s:.2f} s; equals the "
-              f"CLI's file: {same}", flush=True)
-        export_target_ctu_csv(
-            again, list(msh[:, CLI_TARGET_CTU]), MAIN_W, CLI_TARGET_CTU,
-            sad_per_frame=list(sad[:, CLI_TARGET_CTU]),
-            satd_per_frame=list(satd[:, CLI_TARGET_CTU]), pocs=[0, 1])
-        same_target = filecmp.cmp(
-            again, f"{prefix}target_ctu{CLI_TARGET_CTU}.csv", shallow=False)
-        print(f"export_target_ctu_csv of the card's costs equals the CLI's "
-              f"file: {same_target}", flush=True)
-        if not (same and same_target):
-            failures.append("CLI decisions or target CSV differs from the "
-                            "export of the card's costs")
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_latency(frame: np.ndarray, dev: torch.device, card: str,
+                  failures) -> dict:
+    """(f.2) LatencyMipCostEngine on one 1080p host frame with [dev]
+    (1 part) and [dev] x 4 (4 parts on 4 streams), max-performance on
+    the original samples and the full report on the filtered reference:
+    whole tensors against MipCostEngine(frame), one launch per class in
+    all.  Then single-frame latency, host frame to host arrays, median
+    of 10: MipCostEngine and both latency engines, max-performance.
+    Returns {engine: ms}."""
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+    from vvc_mip_gpu_tpu_torch.parallel.latency_engine import (
+        LatencyMipCostEngine)
+
+    filtered = filter_frames(torch.from_numpy(frame)[None].to(dev),
+                             *FILTER)[0].cpu().numpy()
+    engines = {}
+    for mp, ref in ((True, None), (False, filtered)):
+        fields = ("min_sad_had",) if mp else ("sad", "satd", "min_sad_had")
+        want = MipCostEngine(MAIN_W, MAIN_H, max_performance=mp)(frame, ref)
+        for n_parts in (1, 4):
+            engine = LatencyMipCostEngine(MAIN_W, MAIN_H, [dev] * n_parts,
+                                          max_performance=mp)
+            engines[n_parts, mp] = engine
+            got, launches = count_launches(lambda: engine(frame, ref))
+            bad = differing(got, want, fields)
+            if launches != [1, 7, 9]:
+                bad.append(f"launches {launches}, want [1, 7, 9]")
+            if got.min_sad_had.device.type != "cpu":
+                bad.append("costs not on the host")
+            label = (f"{n_parts} part(s), "
+                     f"{'max-performance' if mp else 'filtered full report'}")
+            if bad:
+                failures.append(f"latency {label}: {bad}")
+            print(f"check latency {label}: launches {launches}; whole "
+                  f"tensors vs MipCostEngine(frame): "
+                  f"{'bit-exact' if not bad else bad}", flush=True)
+    single = MipCostEngine(MAIN_W, MAIN_H, max_performance=True)
+    times = {"MipCostEngine": median_ms(
+        lambda: single(frame).min_sad_had.cpu().numpy())}
+    for n_parts in (1, 4):
+        engine = engines[n_parts, True]
+        times[f"latency {n_parts} part(s)"] = median_ms(
+            lambda: engine(frame).min_sad_had.numpy())
+    for name, ms in times.items():
+        print(f"single-frame latency {name}: {ms:.3f} ms median of 10, host "
+              f"frame to host minSadHad ({card})", flush=True)
+    # MipCostEngine's latency by step: the upload of the int32 frame, the
+    # search on the card (CUDA events), the readback into new pageable
+    # memory (what the engines do) and, for reference, into a pinned
+    # buffer allocated once
+    on_card = torch.from_numpy(frame).to(dev)
+    msh = single(on_card).min_sad_had
+    pinned = torch.empty(msh.shape, dtype=msh.dtype, pin_memory=True)
+
+    def synced(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    steps = {
+        "upload": median_ms(synced(lambda: torch.from_numpy(frame).to(dev))),
+        "search (device)": Timer(lambda: single(on_card), TIMED_ITERS).ms,
+        "readback, pageable": median_ms(lambda: msh.cpu()),
+        "readback, pinned": median_ms(synced(
+            lambda: pinned.copy_(msh, non_blocking=True)))}
+    print(f"single-frame latency of MipCostEngine by step "
+          f"({msh.numel() * 4 / 1e6:.1f} MB out): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in steps.items())
+          + f" ({card})", flush=True)
+    return times
+
+
+def phase_cli_processes(cli_args: list[str], tmp: str, card: str,
+                        failures) -> float:
+    """(f.3) two CLI processes on this card, joined through gloo on a
+    free localhost port, with phase (e)'s flags: the union of their
+    decisions CSVs and process 0's target-CTU CSV must equal (e)'s files
+    byte for byte.  Returns the wall seconds of the two."""
+    from vvc_mip_gpu_tpu_torch.parallel.distributed import launch_cli
+
+    prefix = str(Path(tmp) / "mp_")
+    t0 = time.perf_counter()
+    try:
+        outs = launch_cli(cli_args + ["-l", prefix], 2, timeout=300)
+    except RuntimeError as err:
+        failures.append(f"two-process CLI: {str(err)[-3000:]}")
+        return float("nan")
+    wall = time.perf_counter() - t0
+    for i, out in enumerate(outs):
+        report = out[out.index("Stage timing report:"):].rstrip()
+        print(f"two-process CLI, process {i}:\n{report}")
+    bad = [name for name in ("mip_decisions_poc0.csv",
+                             "mip_decisions_poc1.csv",
+                             f"target_ctu{CLI_TARGET_CTU}.csv")
+           if not filecmp.cmp(prefix + name, str(Path(tmp) / "cli_") + name,
+                              shallow=False)]
+    if bad:
+        failures.append(f"two-process CLI files differ from (e)'s: {bad}")
+    print(f"two-process CLI {' '.join(cli_args)} --NumProcesses 2: "
+          f"{wall:.2f} s wall; CSVs equal (e)'s byte for byte: "
+          f"{not bad} ({card})", flush=True)
+    return wall
 
 
 def main() -> int:
@@ -663,7 +888,7 @@ def main() -> int:
               f"{ms / bound:.2f}x the bound, 1 launch per batch", flush=True)
 
     # ---- 4-8. the prediction kernel, the filters, the filtered full
-    # report, the inspect readback and the CLI
+    # report, the inspect readback and the CLI (its files kept for (f))
     noise16 = f16[0]
     smooth16 = torch.from_numpy(synthetic_frames(
         1, MAIN_W, MAIN_H, seed=5)[0].astype(np.int16)).to(dev)
@@ -671,7 +896,22 @@ def main() -> int:
     phase_filters(frames, failures)
     phase_filtered_full(frames, failures)
     pred_launches = phase_inspect(failures)
-    phase_cli(card, failures)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_args = phase_cli(card, tmp, failures)
+        # ---- 9. (f) the multi-device engines and the multi-process CLI
+        mesh_ms = phase_sharded(frames, msh, card, failures)
+        latency_ms = phase_latency(
+            np.random.default_rng(9).integers(
+                0, 1024, (MAIN_H, MAIN_W)).astype(np.int32), dev, card,
+            failures)
+        cli_wall = phase_cli_processes(cli_args, tmp, card, failures)
+    print(f"(f) beside the main path's {batch:.3f} ms per batch of "
+          f"{MAIN_BATCH} ({card}):")
+    for name, ms in mesh_ms.items():
+        print(f"  sharded {name}: {ms:.3f} ms per batch ({card})")
+    for name, ms in latency_ms.items():
+        print(f"  single-frame latency {name}: {ms:.3f} ms ({card})")
+    print(f"  two-process CLI: {cli_wall:.2f} s wall ({card})", flush=True)
     if failures:
         print("FAILED:", *failures, sep="\n  ", file=sys.stderr)
         return 1

@@ -3,11 +3,16 @@ package's: the frames CSV and every decisions-CSV variant byte for byte,
 the best-mode decision, and one CLI run of each package on the same
 synthetic frames (filtered regime, full report, target CTU) writing
 byte-identical files.  Then the port's CLI alone: --OnlyFilter, --Resume,
-a ragged tail chunk, and the device rules (CUDA unless
-VVC_MIP_PLATFORM=cpu; the multi-device flags are refused)."""
+a ragged tail chunk, the device rules (CUDA unless VVC_MIP_PLATFORM=cpu)
+and the multi-device paths: a mesh, the latency mode and two processes
+write the single-device run's files byte for byte."""
 
+import contextlib
 import filecmp
+import io
+import os
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +26,7 @@ from vvc_mip_gpu_tpu_torch import cli as tcli
 from vvc_mip_gpu_tpu_torch.io import export as texport
 from vvc_mip_gpu_tpu_torch.io import frames as tframes
 from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
+from vvc_mip_gpu_tpu_torch.parallel import distributed as tdistributed
 from vvc_mip_gpu_tpu_torch.utils.pipeline import pipelined
 
 PER_CTU = texport.DIST_PER_CTU
@@ -113,14 +119,29 @@ def _report_lines(text):
                                     "TotalElapsedMs"))]
 
 
-def test_cli_matches_the_jax_cli(tmp_path, on_cpu, capsys):
-    assert jcli.main(CLI_ARGS + ["-l", str(tmp_path / "j_")]) == 0
-    jax_out = capsys.readouterr().out
+CLI_FILES = ("mip_decisions_poc0.csv", "mip_decisions_poc1.csv",
+             "target_ctu0.csv")
+
+
+@pytest.fixture(scope="module")
+def jax_cli_run(tmp_path_factory):
+    """One run of the JAX package's CLI on CLI_ARGS, on the CPU: (output
+    prefix, stdout).  Its files are the reference of every port CLI run
+    with these flags below."""
+    prefix = tmp_path_factory.mktemp("jax_cli") / "j_"
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
+        mp.setenv("VVC_MIP_PLATFORM", "cpu")
+        assert jcli.main(CLI_ARGS + ["-l", str(prefix)]) == 0
+    return str(prefix), out.getvalue()
+
+
+def test_cli_matches_the_jax_cli(jax_cli_run, tmp_path, on_cpu, capsys):
+    jax_prefix, jax_out = jax_cli_run
     assert tcli.main(CLI_ARGS + ["-l", str(tmp_path / "t_")]) == 0
     out = capsys.readouterr().out
-    for name in ("mip_decisions_poc0.csv", "mip_decisions_poc1.csv",
-                 "target_ctu0.csv"):
-        _same(tmp_path / f"t_{name}", tmp_path / f"j_{name}")
+    for name in CLI_FILES:
+        _same(tmp_path / f"t_{name}", jax_prefix + name)
     assert _report_lines(out) == _report_lines(jax_out)
     assert out.count("=== DISTORTION, CTU 0") == 2
     for stage in ("READ SAMPLES", "ENQUEUE FILTER", "ENQUEUE KERNELS",
@@ -219,13 +240,84 @@ def test_cli_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
         tcli.main(args)
 
 
-@pytest.mark.parametrize("flags", [["--MeshData", "2"], ["--MeshSpace", "2"],
-                                   ["--LatencyMode"], ["--NumProcesses", "2"],
-                                   ["--Coordinator", "localhost:1234"],
-                                   ["--ProcessId", "1"]])
-def test_cli_refuses_the_multi_device_flags(flags, on_cpu):
-    with pytest.raises(ValueError, match="ROADMAP A.8"):
+@pytest.mark.parametrize("flags", [
+    ["--MeshData", "2", "--MeshSpace", "2"], ["--LatencyMode"],
+    ["--NumProcesses", "2", "--Coordinator", "localhost:1"]])
+def test_cli_multi_device_paths_need_a_card(flags, monkeypatch):
+    """Without a CUDA device and without VVC_MIP_PLATFORM=cpu the mesh,
+    latency and multi-process paths raise (before joining any process
+    group) instead of running on the CPU."""
+    monkeypatch.delenv("VVC_MIP_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="VVC_MIP_PLATFORM=cpu"):
         tcli.main(["-f", "1", "-s", "128x128", "--Synthetic", *flags])
+
+
+@pytest.mark.parametrize("flags", [["--MeshData", "2"], ["--MeshSpace", "2"],
+                                   ["--NumProcesses", "2"]])
+def test_cli_latency_mode_rule(flags, on_cpu):
+    """The JAX package's rule: --LatencyMode takes every local device by
+    itself and combines with no mesh and no second process."""
+    with pytest.raises(ValueError, match="--LatencyMode uses all local "
+                                         "devices by itself"):
+        tcli.main(["-f", "1", "-s", "128x128", "--Synthetic", "--LatencyMode",
+                   *flags])
+
+
+@pytest.mark.parametrize("flags", [["--MeshData", "2"], ["--MeshSpace", "2"],
+                                   ["--LatencyMode"]])
+def test_cli_multi_device_runs_match_single_device(flags, jax_cli_run,
+                                                   tmp_path, on_cpu, capsys):
+    """A (2, 1) or (1, 2) mesh of the CPU (the latter pads the height to
+    256, a band of padding rows the CLI drops) and the latency mode write
+    the single-device run's files (which equal the JAX CLI's) byte for
+    byte."""
+    assert tcli.main(CLI_ARGS + flags + ["-l", str(tmp_path / "m_")]) == 0
+    out = capsys.readouterr().out
+    for name in CLI_FILES:
+        _same(tmp_path / f"m_{name}", jax_cli_run[0] + name)
+    assert out.count("=== DISTORTION, CTU 0") == 2
+    for stage in ("ENQUEUE KERNELS", "READ DISTORTION", "WRITE DECISIONS"):
+        assert stage in out
+
+
+def test_cli_mesh_resume_pads_the_chunk_to_the_data_axis(jax_cli_run,
+                                                         tmp_path, on_cpu,
+                                                         capsys):
+    """--Resume on a (2, 1) mesh with frame 0's log present: frame 1 alone
+    is searched, padded to the data axis by repeating it, and its log
+    equals the single-device run's."""
+    prefix = str(tmp_path / "r_")
+    Path(prefix + "mip_decisions_poc0.csv").write_bytes(
+        Path(jax_cli_run[0] + "mip_decisions_poc0.csv").read_bytes())
+    assert tcli.main(CLI_ARGS + ["--MeshData", "2", "--Resume",
+                                 "-l", prefix]) == 0
+    out = capsys.readouterr().out
+    assert "skipping frame 0" in out and out.count("=== DISTORTION") == 1
+    _same(prefix + "mip_decisions_poc1.csv",
+          jax_cli_run[0] + "mip_decisions_poc1.csv")
+
+
+def test_cli_two_processes_match_single_process(jax_cli_run, tmp_path):
+    """Two CLI processes (gloo on localhost) take a frame each: the union
+    of their decisions CSVs and process 0's target-CTU CSV equal the
+    single-process run's.  The children run with ``jax`` and the JAX
+    package made unimportable, so they use neither."""
+    blocker = tmp_path / "blocker"
+    for name in ("jax", "vvc_mip_gpu_tpu"):
+        (blocker / name).mkdir(parents=True)
+        (blocker / name / "__init__.py").write_text(
+            f"raise ImportError('the port imported {name}')\n")
+    env = {"VVC_MIP_PLATFORM": "cpu", "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join(
+               [str(blocker), os.environ.get("PYTHONPATH", "")])}
+    outs = tdistributed.launch_cli(
+        CLI_ARGS + ["-l", str(tmp_path / "p_")], 2, timeout=120, env=env)
+    for i, out in enumerate(outs):
+        assert f"[process {i}] exported 1 frames" in out
+    assert "target_ctu0.csv" in outs[0] and "target_ctu0.csv" not in outs[1]
+    for name in CLI_FILES:
+        _same(tmp_path / f"p_{name}", jax_cli_run[0] + name)
 
 
 def test_cli_checks_its_arguments(on_cpu):

@@ -14,6 +14,10 @@ frames (all 1023, all 0, a 0/1023 checkerboard), and with misaligned
 frames and outputs (the kernels' scalar loads and stores); so is the
 reduced-prediction kernel for each SizeId, the inspect readback on the
 card against the host's, and the filters on the card against the CPU.
+The multi-device engines run the kernels on one card under a (2, 2) mesh
+(four shards, four streams, real halo rows between bands) and as a
+4-part latency engine (four class subsets on four streams), each against
+MipCostEngine, with their launch counts.
 """
 
 import numpy as np
@@ -31,6 +35,8 @@ from vvc_mip_gpu_tpu_torch.models.inspect import inspect_ctu
 from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
 from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
 from vvc_mip_gpu_tpu_torch.ops.pred import mip_reduced_pred
+from vvc_mip_gpu_tpu_torch.parallel import ShardedMipCostEngine, make_mesh
+from vvc_mip_gpu_tpu_torch.parallel.latency_engine import LatencyMipCostEngine
 
 pytestmark = [
     pytest.mark.cuda,
@@ -209,3 +215,69 @@ def test_filters_on_the_card_match_the_cpu(ftype):
         assert got.device.type == "cuda"
         assert torch.equal(got.cpu(), filter_frames(cpu, ftype, kidx)), (
             f"{ftype}[{kidx}]")
+
+
+def _regime_inputs(regime, n, width, height, seed):
+    """n host frames (noise and smooth) and, in the filtered regime, their
+    filtered references; (frames, refs or None, max_performance): the
+    original regime is the max-performance one, the filtered regime the
+    full report."""
+    rng = np.random.default_rng(seed)
+    frames = np.concatenate([
+        rng.integers(0, 1024, (n - n // 2, height, width)),
+        synthetic_frames(n // 2, width, height, seed=seed)]).astype(np.int32)
+    if regime == "original":
+        return frames, None, True
+    refs = filter_frames(torch.from_numpy(frames),
+                         "filterFrame_2d_int_quarterCtu", 2).numpy()
+    return frames, refs, False
+
+
+def _assert_costs_equal(got, want, fields):
+    for field in fields:
+        g, w = getattr(got, field).cpu(), getattr(want, field).cpu()
+        assert g.shape == w.shape, (field, g.shape, w.shape)
+        assert torch.equal(g, w), f"{field}: {int((g != w).sum())} differ"
+
+
+@pytest.mark.parametrize("regime", ["original", "filtered"])
+def test_sharded_mesh_on_one_card(regime):
+    """A (2, 2) mesh of cuda:0 four times at 608x192 (padded to 256 rows):
+    whole padded tensors equal MipCostEngine on the edge-padded frames;
+    each shard launches each kernel once per class."""
+    width, height = 608, 192
+    frames, refs, mp = _regime_inputs(regime, 4, width, height, seed=21)
+    mesh = make_mesh(2, 2, [torch.device("cuda", 0)] * 4)
+    engine = ShardedMipCostEngine(width, height, mesh, max_performance=mp)
+    for k in KERNELS:
+        k.launches = 0
+    got = engine(frames, refs)
+    torch.cuda.synchronize()
+    assert [k.launches for k in KERNELS] == [4, 28, 36]
+    assert got.min_sad_had.device == torch.device("cuda", 0)
+    want = tce.MipCostEngine(width, engine.padded_height,
+                             max_performance=mp).compute_batch(
+        engine.pad_frames(frames),
+        None if refs is None else engine.pad_frames(refs))
+    fields = ("min_sad_had",) if mp else ("sad", "satd", "min_sad_had")
+    _assert_costs_equal(got, want, fields)
+
+
+@pytest.mark.parametrize("regime", ["original", "filtered"])
+def test_latency_engine_four_parts_on_one_card(regime):
+    """4 class subsets of one 608x192 host frame on four streams of cuda:0:
+    whole tensors equal MipCostEngine; one launch per class in all."""
+    width, height = 608, 192
+    frames, refs, mp = _regime_inputs(regime, 1, width, height, seed=22)
+    ref = None if refs is None else refs[0]
+    engine = LatencyMipCostEngine(width, height,
+                                  [torch.device("cuda", 0)] * 4,
+                                  max_performance=mp)
+    for k in KERNELS:
+        k.launches = 0
+    got = engine(frames[0], ref)
+    assert [k.launches for k in KERNELS] == [1, 7, 9]
+    want = tce.MipCostEngine(width, height, max_performance=mp)(frames[0],
+                                                                ref)
+    fields = ("min_sad_had",) if mp else ("sad", "satd", "min_sad_had")
+    _assert_costs_equal(got, want, fields)

@@ -20,10 +20,10 @@ flags (reference: main.cpp:50-83) and compile-time behavior macros
 | BUFFER_SLOTS prefetch           | batch_frames (device batching)      |
 | USE_ARM macro                   | n/a (no per-vendor kernel variants) |
 
-The multi-device fields (mesh_data, mesh_space, latency_mode, coordinator,
-num_processes, process_id) are parsed for command-line compatibility with
-the JAX package's CLI; the port runs one device until its ``parallel``
-package exists, and ``validate`` rejects them.
+The multi-device fields select the engines of ``parallel/``: mesh_data x
+mesh_space the sharded engine's mesh, latency_mode the class-sharded
+single-frame engine over every local device, and coordinator /
+num_processes / process_id the multi-process runtime (gloo).
 """
 
 from __future__ import annotations
@@ -31,9 +31,6 @@ from __future__ import annotations
 import dataclasses
 
 from vvc_mip_gpu_tpu_torch.constants import AVAILABLE_FILTERS, AVAILABLE_RES
-
-_NO_PARALLEL = ("is not ported yet (the multi-device engines, ROADMAP "
-                "A.8); this port runs on one device")
 
 
 @dataclasses.dataclass
@@ -52,7 +49,11 @@ class EngineConfig:
     device_index: int = 0
     mesh_data: int = 1
     mesh_space: int = 1
+    # Latency mode: each frame class-sharded over all local devices
+    # (parallel/latency_engine.py) — minimizes time-to-first-frame
+    # instead of throughput.
     latency_mode: bool = False
+    # Multi-process (torch.distributed, gloo): one process per host.
     coordinator: str | None = None
     num_processes: int = 1
     process_id: int = 0
@@ -80,11 +81,13 @@ class EngineConfig:
                 raise ValueError("frame dimensions must be multiples of 4")
         if self.n_frames < 1:
             raise ValueError("n_frames must be >= 1")
-        if self.mesh_data * self.mesh_space > 1:
-            raise ValueError(f"--MeshData/--MeshSpace > 1 {_NO_PARALLEL}")
-        if self.latency_mode:
-            raise ValueError(f"--LatencyMode {_NO_PARALLEL}")
-        if (self.coordinator is not None or self.num_processes > 1
-                or self.process_id != 0):
-            raise ValueError(f"--Coordinator/--NumProcesses > 1/--ProcessId "
-                             f"{_NO_PARALLEL}")
+        if self.mesh_data < 1 or self.mesh_space < 1:
+            raise ValueError("--MeshData and --MeshSpace must be >= 1")
+        if not 0 <= self.process_id < self.num_processes:
+            raise ValueError(f"--ProcessId {self.process_id} out of range "
+                             f"for --NumProcesses {self.num_processes}")
+        if self.latency_mode and (self.mesh_data * self.mesh_space > 1
+                                  or self.num_processes > 1):
+            raise ValueError(
+                "--LatencyMode uses all local devices by itself; it "
+                "cannot combine with --MeshData/--MeshSpace or multi-host")
