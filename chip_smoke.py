@@ -31,16 +31,28 @@ of the port's paths through the entry points a user calls, all at
   kernel) against the host's, for groups of each SizeId, edge CTUs and a
   filtered reference;
 - (e) the port's CLI in-process (filtered, full report, target CTU, two
-  frames) into a temporary directory, its CSVs checked against the card's
-  costs;
+  frames) into a temporary directory, its CSVs, written by the C writer
+  (csrc/io_native.c), checked against the card's costs and frame 0's
+  against the numpy writer's bytes, both writers timed;
 - (f) the multi-device engines on this one card: the sharded engine
   (meshes (1, 1) and (2, 2) on the main path's batch, and (1, 2) in the
   filtered full report, whose bands meet at a filtered halo row) against
   MipCostEngine on the edge-padded and on the true frames; the latency
   engine on one frame with 1 part and with 4 parts on 4 streams, both
-  regimes; two CLI processes (gloo on localhost) with (e)'s flags, whose
-  CSVs must equal (e)'s byte for byte (then all are deleted); each timed
-  (ms per batch, single-frame latency host to host, CLI wall time).
+  regimes; the CLI's latency path, which reads back through the pinned
+  readback ring, and two CLI processes (gloo on localhost) with (e)'s
+  flags, whose CSVs must equal (e)'s byte for byte (then all are
+  deleted); each timed (ms per batch, single-frame latency host to host
+  and by step, the readback into new pageable memory and into the ring,
+  CLI wall time);
+- (g) the C frame-CSV writer and reader against the numpy ones on 16
+  frames, byte for byte and sample for sample, timed;
+- (h) the port's power tracer (tools/power_tracer.py, nvidia-smi as the
+  meter) on the CLI at 1920x1080, max-performance, 1 and 2 frames, and
+  its energy analysis (tools/compute_energy.py): every stage marker
+  paired, a power sample inside the search, joules per stage and frame;
+- the roofline tool's per-class bounds (tools/roofline.py, the op model
+  of every bound here) against the ones this run reports.
 
 Every path runs with the launch counters set to 0 just before it and read
 just after, and fails unless each of its kernels launched.  It prints one
@@ -66,15 +78,10 @@ import torch
 
 MAIN_W, MAIN_H, MAIN_BATCH = 1920, 1080, 16
 TIMED_ITERS = 10
-# The most 32-bit integer results an SM can produce per clock at compute
-# capability 9.0: its 4 schedulers each issue one 32-lane warp instruction
-# a clock.  Two pipes share that rate, 64 results per clock each (CUDA C++
-# Programming Guide, arithmetic instruction throughput table): multiply-add
-# on the FMA pipe, add, logic, shift, abs and min/max on the integer pipe.
-# A kernel whose multiply-adds and other integer operations overlap can
-# beat 64 per clock, and the 4x4 cost kernel does.
-INT32_OPS_PER_CLK_PER_SM = 128
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FRAME_IO_FRAMES = 16  # phase (g)
+ENERGY_FRAMES = 2  # phase (h): the tracer's sweep, 1..ENERGY_FRAMES
+# the pageable readback of the same 52.8 MB before the ring (PERF.md §5)
+EARLIER_PAGEABLE_READBACK_MS = 27.941
 SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_cost.cu"
 PRED_SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_pred.cu"
 FILTER = ("filterFrame_2d_int_quarterCtu", 2)  # the filtered-regime phases
@@ -95,21 +102,6 @@ def smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.splitlines()[0]
-
-
-def class_ops(h: int, w: int, r: int, two_m: int, n_cu: int) -> int:
-    """Integer operations one class needs for one frame: the per-class op
-    model of tools/roofline.py:44-58 (diff, SAD, butterflies, SATD
-    abs+acc per sample; ~4 ops per upsampled sample; the prediction
-    epilogue and per-mode epilogue)."""
-    per_sample = 1 + 2 + 4 + 2
-    up_ops = 0
-    if r < w:
-        up_ops += 4 * r * w
-    if r < h or r < w:
-        up_ops += 4 * h * w
-    ops_mode = per_sample * h * w + up_ops + 4 * r * r + 6
-    return n_cu * two_m * ops_mode
 
 
 def csv_shape(path) -> tuple[str, int]:
@@ -161,6 +153,7 @@ def phase_pred(noise16, smooth16, int_rate: float, failures) -> dict:
     CUs beside the bound and a cuBLAS fp32 product of the same shapes."""
     from vvc_mip_gpu_tpu_torch.mip_weights import matrices, weights_from_numpy
     from vvc_mip_gpu_tpu_torch.ops.pred import mip_reduced_pred as kernel
+    from vvc_mip_gpu_tpu_torch.tools import roofline
 
     max_err = 0
     inputs = {}
@@ -200,7 +193,7 @@ def phase_pred(noise16, smooth16, int_rate: float, failures) -> dict:
         ops = n * (2 * m * s * (macs + 4) + 2 * 3 * c)
         nbytes = (red_t.numel() + red_l.numel()) * 4 + weights[sid].numel() * 4
         nbytes += 2 * m * s * n * 2
-        bound = max(ops / int_rate, nbytes / HBM_BYTES_PER_S) * 1e3
+        bound = roofline.bound(ops, nbytes, int_rate)[0]
         row["ms"] += ms
         row["plain_ms"] += plain_ms
         row["ops"] += ops
@@ -355,15 +348,14 @@ def phase_cli(card: str, tmp: str, failures) -> list[str]:
     and the target-CTU CSV byte for byte against a fresh export of the
     card's costs.  The files stay for phase (f); returns the CLI's
     arguments but the output prefix."""
-    from vvc_mip_gpu_tpu_torch import cli
     from vvc_mip_gpu_tpu_torch.constants import num_ctus
     from vvc_mip_gpu_tpu_torch.io.export import (
-        export_decisions_csv, export_target_ctu_csv)
+        export_decisions_csv, export_decisions_csv_plain,
+        export_target_ctu_csv)
     from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
     from vvc_mip_gpu_tpu_torch.models.cost_engine import (
         PER_CTU, MipCostEngine)
     from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
-    from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
 
     n_ctu = num_ctus(MAIN_W, MAIN_H)[2]
     header = "POC,CTU,cuSizeName,W,H,CU,X,Y,Mode,SAD,SATD,minSadHad"
@@ -372,21 +364,12 @@ def phase_cli(card: str, tmp: str, failures) -> list[str]:
             "--FullDistortion", "--FilterType", FILTER[0],
             "--KernelIdx", str(FILTER[1]), "--TargetCTU",
             str(CLI_TARGET_CTU), "--BatchFrames", "2", "-l", prefix]
-    torch.cuda.synchronize()
-    for k in KERNELS:
-        k.launches = 0
-    t0 = time.perf_counter()
-    with open(Path(tmp) / "stdout.txt", "w") as out, \
-            contextlib.redirect_stdout(out):
-        rc = cli.main(args)
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in KERNELS}
-    text = (Path(tmp) / "stdout.txt").read_text()
-    report = text[text.index("Stage timing report:"):].rstrip()
+    (rc, wall, report), launches = count_launches(
+        lambda: cli_in_process(args, Path(tmp) / "stdout.txt"))
     print(f"CLI {' '.join(args[:-2])}: rc {rc}, {wall:.2f} s wall, "
           f"launches {launches} ({card})")
     print(report)
-    if rc != 0 or list(launches.values()) != [1, 7, 9]:
+    if rc != 0 or launches != [1, 7, 9]:
         failures.append(f"CLI rc {rc}, launches {launches}")
     frames = torch.from_numpy(synthetic_frames(
         2, MAIN_W, MAIN_H).astype(np.int32)).cuda()
@@ -408,17 +391,30 @@ def phase_cli(card: str, tmp: str, failures) -> list[str]:
             failures.append(f"CLI {name}: header or rows wrong")
     # the export layer alone: the card's costs of frame 0 and of the
     # target CTU, written again, must give the CLI's files byte for
-    # byte (the exports equal the JAX package's bytes on the CPU)
+    # byte (the exports equal the JAX package's bytes on the CPU), and
+    # the numpy writer, the C writer's oracle, the same bytes
     again = Path(tmp) / "again.csv"
+    plain = Path(tmp) / "plain.csv"
     t0 = time.perf_counter()
     export_decisions_csv(again, msh[0], MAIN_W, sad=sad[0],
                          satd=satd[0], poc=0)
     export_s = time.perf_counter() - t0
     same = filecmp.cmp(again, prefix + "mip_decisions_poc0.csv",
                        shallow=False)
+    t0 = time.perf_counter()
+    export_decisions_csv_plain(plain, msh[0], MAIN_W, sad=sad[0],
+                               satd=satd[0], poc=0)
+    plain_s = time.perf_counter() - t0
+    same_plain = filecmp.cmp(plain, again, shallow=False)
+    mb = again.stat().st_size / 1e6
+    plain.unlink()
     print(f"export_decisions_csv of frame 0 (full report, "
-          f"{n_ctu * PER_CTU} rows): {export_s:.2f} s; equals the "
-          f"CLI's file: {same}", flush=True)
+          f"{n_ctu * PER_CTU} rows, {mb:.1f} MB): C writer {export_s:.3f} s "
+          f"({mb / export_s:.1f} MB/s), equals the CLI's file: {same}; "
+          f"numpy writer {plain_s:.3f} s ({mb / plain_s:.1f} MB/s), "
+          f"equals the C writer's bytes: {same_plain} ({card})", flush=True)
+    if not same_plain:
+        failures.append("the C and numpy decisions writers differ")
     export_target_ctu_csv(
         again, list(msh[:, CLI_TARGET_CTU]), MAIN_W, CLI_TARGET_CTU,
         sad_per_frame=list(sad[:, CLI_TARGET_CTU]),
@@ -556,6 +552,7 @@ def phase_latency(frame: np.ndarray, dev: torch.device, card: str,
     from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
     from vvc_mip_gpu_tpu_torch.parallel.latency_engine import (
         LatencyMipCostEngine)
+    from vvc_mip_gpu_tpu_torch.utils.readback import ReadbackRing
 
     filtered = filter_frames(torch.from_numpy(frame)[None].to(dev),
                              *FILTER)[0].cpu().numpy()
@@ -581,8 +578,11 @@ def phase_latency(frame: np.ndarray, dev: torch.device, card: str,
                   f"tensors vs MipCostEngine(frame): "
                   f"{'bit-exact' if not bad else bad}", flush=True)
     single = MipCostEngine(MAIN_W, MAIN_H, max_performance=True)
+    ring = ReadbackRing()
     times = {"MipCostEngine": median_ms(
-        lambda: single(frame).min_sad_had.cpu().numpy())}
+        lambda: single(frame).min_sad_had.cpu().numpy()),
+        "MipCostEngine, readback ring": median_ms(
+            lambda: ring.read(single(frame).min_sad_had))}
     for n_parts in (1, 4):
         engine = engines[n_parts, True]
         times[f"latency {n_parts} part(s)"] = median_ms(
@@ -592,8 +592,9 @@ def phase_latency(frame: np.ndarray, dev: torch.device, card: str,
               f"frame to host minSadHad ({card})", flush=True)
     # MipCostEngine's latency by step: the upload of the int32 frame, the
     # search on the card (CUDA events), the readback into new pageable
-    # memory (what the engines do) and, for reference, into a pinned
-    # buffer allocated once
+    # memory (what the engines do), into the CLI's readback ring (two
+    # pinned buffers, reused) and, for reference, into one pinned buffer
+    # allocated once
     on_card = torch.from_numpy(frame).to(dev)
     msh = single(on_card).min_sad_had
     pinned = torch.empty(msh.shape, dtype=msh.dtype, pin_memory=True)
@@ -608,13 +609,55 @@ def phase_latency(frame: np.ndarray, dev: torch.device, card: str,
         "upload": median_ms(synced(lambda: torch.from_numpy(frame).to(dev))),
         "search (device)": Timer(lambda: single(on_card), TIMED_ITERS).ms,
         "readback, pageable": median_ms(lambda: msh.cpu()),
+        "readback, ring": median_ms(lambda: ring.read(msh)),
         "readback, pinned": median_ms(synced(
             lambda: pinned.copy_(msh, non_blocking=True)))}
     print(f"single-frame latency of MipCostEngine by step "
           f"({msh.numel() * 4 / 1e6:.1f} MB out): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in steps.items())
-          + f" ({card})", flush=True)
+          + f" ({card}); the pageable readback read "
+          f"{EARLIER_PAGEABLE_READBACK_MS} ms before the ring (PERF.md)",
+          flush=True)
+    times.update({f"step {k}": v for k, v in steps.items()})
     return times
+
+
+def cli_in_process(args: list[str], log: Path):
+    """(rc, wall seconds, stage report) of the port's CLI run in this
+    process, its output into ``log``."""
+    from vvc_mip_gpu_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    with open(log, "w") as out, contextlib.redirect_stdout(out):
+        rc = cli.main(args)
+    wall = time.perf_counter() - t0
+    text = log.read_text()
+    return rc, wall, text[text.index("Stage timing report:"):].rstrip()
+
+
+def phase_cli_latency(cli_args: list[str], tmp: str, card: str,
+                      failures) -> float:
+    """(f.3) the CLI's latency path (--LatencyMode: one frame a chunk,
+    each read back into the pinned readback ring while the writer thread
+    exports the previous one) with phase (e)'s flags: its CSVs must equal
+    (e)'s byte for byte.  Returns its wall seconds."""
+    prefix = str(Path(tmp) / "lat_")
+    (rc, wall, report), launches = count_launches(lambda: cli_in_process(
+        cli_args + ["--LatencyMode", "-l", prefix], Path(tmp) / "lat.txt"))
+    names = ("mip_decisions_poc0.csv", "mip_decisions_poc1.csv",
+             f"target_ctu{CLI_TARGET_CTU}.csv")
+    bad = [name for name in names
+           if not filecmp.cmp(prefix + name, str(Path(tmp) / "cli_") + name,
+                              shallow=False)]
+    for name in names:
+        Path(prefix + name).unlink(missing_ok=True)
+    if rc or bad or launches != [2, 14, 18]:
+        failures.append(f"CLI --LatencyMode: rc {rc}, launches {launches}, "
+                        f"files differing from (e)'s: {bad}")
+    print(f"CLI {' '.join(cli_args)} --LatencyMode (readback ring): rc {rc}, "
+          f"{wall:.2f} s wall, launches {launches}; CSVs equal (e)'s byte for "
+          f"byte: {not bad} ({card})\n{report}", flush=True)
+    return wall
 
 
 def phase_cli_processes(cli_args: list[str], tmp: str, card: str,
@@ -649,6 +692,123 @@ def phase_cli_processes(cli_args: list[str], tmp: str, card: str,
     return wall
 
 
+def phase_frame_io(tmp: str, card: str, failures) -> None:
+    """(g) the C frame-CSV writer and reader (csrc/io_native.c) against
+    the numpy ones: 16 synthetic frames written by both must be byte
+    equal; read back by both from frame 0 and from frame 5 they must
+    give the frames.  Each timed."""
+    from vvc_mip_gpu_tpu_torch.io import frames as fio
+
+    frames = fio.synthetic_frames(FRAME_IO_FRAMES, MAIN_W, MAIN_H, seed=11)
+    paths = {"C": Path(tmp) / "frames_c.csv",
+             "numpy": Path(tmp) / "frames_numpy.csv"}
+    times = {}
+    for name, write in (("C", fio.write_frames_csv),
+                        ("numpy", fio.write_frames_csv_plain)):
+        t0 = time.perf_counter()
+        write(paths[name], frames)
+        times[f"write {name}"] = time.perf_counter() - t0
+    bad = [] if filecmp.cmp(paths["C"], paths["numpy"], shallow=False) else [
+        "the written files differ"]
+    mb = paths["C"].stat().st_size / 1e6
+    for start in (0, 5):
+        n = FRAME_IO_FRAMES - start
+        for name, read in (("C", fio.read_frames_csv),
+                           ("numpy", fio.read_frames_csv_plain)):
+            t0 = time.perf_counter()
+            got = read(paths["C"], MAIN_W, MAIN_H, n, start=start)
+            times[f"read {name} start={start}"] = time.perf_counter() - t0
+            if not np.array_equal(got, frames[start:]):
+                bad.append(f"{name} reader from frame {start}")
+    for path in paths.values():
+        path.unlink()
+    if bad:
+        failures.append(f"frame CSV I/O: {bad}")
+    print(f"check frame CSV I/O, {FRAME_IO_FRAMES} frames {MAIN_W}x{MAIN_H} "
+          f"({mb:.1f} MB): C and numpy writers byte-equal, C and numpy "
+          f"readers from frames 0 and 5 equal the frames: "
+          f"{'ok' if not bad else bad}; seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f" ({card})", flush=True)
+
+
+def phase_energy(tmp: str, card: str, failures) -> dict:
+    """(h) the port's power tracer (nvidia-smi as the meter) on the CLI at
+    1920x1080, max-performance, synthetic frames, for 1..ENERGY_FRAMES
+    frames, and its energy analysis.  Every START marker must have its
+    FINISH and a power sample must fall inside the ENQUEUE KERNELS
+    window.  Returns {frames: joules per frame}."""
+    from vvc_mip_gpu_tpu_torch.tools import compute_energy, power_tracer
+
+    per_frame = {}
+    for n in range(1, ENERGY_FRAMES + 1):
+        prefix = str(Path(tmp) / f"energy_f{n}_")
+        try:
+            log, power = power_tracer.run_once(
+                ["-s", f"{MAIN_W}x{MAIN_H}", "-f", str(n), "--Synthetic",
+                 "-l", prefix], power_tracer.NVIDIA_SMI, prefix, 0.0)
+        except RuntimeError as err:
+            failures.append(f"power tracer, {n} frame(s): {str(err)[-2000:]}")
+            continue
+        finally:
+            for csv in Path(tmp).glob(f"energy_f{n}_mip_decisions*"):
+                csv.unlink()
+        lines = Path(log).read_text().splitlines()
+        power_lines = Path(power).read_text().splitlines()
+        marks = [re.match(r"(START|FINISH) (.+),", line) for line in lines]
+        starts = sorted(m[2] for m in marks if m and m[1] == "START")
+        finishes = sorted(m[2] for m in marks if m and m[1] == "FINISH")
+        samples = compute_energy.parse_power(power_lines)
+        kernels = compute_energy.parse_markers(lines).get("ENQUEUE KERNELS",
+                                                          [])
+        inside = sum(a <= t <= b for t, _ in samples for a, b in kernels)
+        report = compute_energy.analyze(lines, power_lines)
+        bad = []
+        if starts != finishes or not starts:
+            bad.append(f"markers START {starts} FINISH {finishes}")
+        if not inside:
+            bad.append(f"no power sample inside ENQUEUE KERNELS {kernels}")
+        if report.get("frames") != n:
+            bad.append(f"frames {report.get('frames')}")
+        if bad:
+            failures.append(f"energy, {n} frame(s): {bad}")
+            continue
+        per_frame[n] = report["energy_per_frame_j"]
+        stages = ", ".join(f"{k} {v['time_s'] * 1e3:.1f} ms {v['energy_j']:.2f}"
+                           f" J" for k, v in report["stages"].items())
+        print(f"energy, {n} frame(s) {MAIN_W}x{MAIN_H} max-performance: "
+              f"{len(samples)} power samples ({inside} inside ENQUEUE "
+              f"KERNELS), {len(starts)} marker pairs; active window "
+              f"{report['active_window_s']:.3f} s, {report['avg_power_w']:.1f}"
+              f" W, {report['energy_j']:.2f} J, "
+              f"{report['energy_per_frame_j']:.2f} J per frame; per stage: "
+              f"{stages} ({card})", flush=True)
+    return per_frame
+
+
+def phase_roofline(per_kernel: dict, card: str, failures) -> None:
+    """The roofline tool's per-class bounds, with the rates it reads from
+    the card itself, against the bounds this run reported."""
+    from vvc_mip_gpu_tpu_torch.tools import roofline
+
+    rep = roofline.report(MAIN_W, MAIN_H, MAIN_BATCH, *roofline.card_rate())
+    bad = []
+    for row in rep["classes"]:
+        mine = per_kernel[row["kernel"]]["class_bounds"][row["class"]]
+        print(f"roofline tool {row['class']} ({row['kernel']}): "
+              f"{row['ops'] / 1e9:.2f} G ops, {row['bytes'] / 1e6:.1f} MB, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); this run "
+              f"{mine:.4f} ms")
+        if round(row["bound_ms"], 4) != mine:
+            bad.append(row["class"])
+    print(f"roofline tool: {rep['int32_tops']:.2f} Tops/s int32, "
+          f"{rep['hbm_tb_s']:.2f} TB/s, all classes {rep['bound_ms']:.4f} ms "
+          f"({rep['bound_by']}); equal to this run's bounds: {not bad} "
+          f"({card})", flush=True)
+    if bad:
+        failures.append(f"roofline tool bounds differ for {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -660,6 +820,7 @@ def main() -> int:
     from vvc_mip_gpu_tpu_torch.ops import _build
     from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
     from vvc_mip_gpu_tpu_torch.ops.pred import mip_reduced_pred
+    from vvc_mip_gpu_tpu_torch.tools import roofline
     from vvc_mip_gpu_tpu_torch.utils.sass import (
         describe, instruction_mix, kernel_name)
 
@@ -671,12 +832,14 @@ def main() -> int:
           f"python {sys.version.split()[0]} device {props.name} "
           f"SMs {props.multi_processor_count}", flush=True)
 
-    # ---- 1. build the kernels from csrc/ (never a library left by an
-    # earlier run in this tree), one nvcc per source, all at once
-    for name in _build.LIBRARIES:
+    # ---- 1. build the kernels and the C CSV library from csrc/ (never a
+    # library left by an earlier run in this tree), one compiler per
+    # source, all at once
+    libraries = _build.LIBRARIES + _build.HOST_LIBRARIES
+    for name in libraries:
         _build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
-    built = _build.build_libraries()
+    built = _build.build_libraries(libraries)
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{', '.join(path.name for path, _ in built.values())}")
     failures: list[str] = []
@@ -853,28 +1016,28 @@ def main() -> int:
     out = torch.empty((MAIN_BATCH, n_ctu, PER_CTU), dtype=torch.int32,
                       device=dev)
     clock_mhz = float(smi("clocks.max.sm").split()[0])
-    int_rate = (INT32_OPS_PER_CLK_PER_SM * props.multi_processor_count
-                * clock_mhz * 1e6)
+    int_rate = roofline.int32_rate(props.multi_processor_count, clock_mhz)
     print(f"bound rates: int32 {int_rate / 1e12:.2f} Tops/s "
-          f"({INT32_OPS_PER_CLK_PER_SM}/clk/SM x "
+          f"({roofline.INT32_OPS_PER_CLK_PER_SM}/clk/SM x "
           f"{props.multi_processor_count} SMs x {clock_mhz:.0f} MHz), "
-          f"memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+          f"memory {roofline.HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     per_kernel = {k.name: {"ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0,
                            "classes": {}, "class_bounds": {}}
                   for k in KERNELS}
-    for run in runs:
+    # the op model's work per class (tools/roofline.py), the runs' order
+    work = roofline.class_work(MAIN_W, MAIN_H, MAIN_BATCH)
+    for run, cw in zip(runs, work):
         s = run.plan.shape
         args = (f16, f16, halo16, True, run.plan, run.table, run.weights,
                 [out])
         ms = Timer(lambda: run.kernel(*args), 5).ms
         plain_ms = Timer(lambda: run.kernel.plain(*args), 1).ms
-        n_cu = run.table.shape[0]
-        ops = MAIN_BATCH * class_ops(s.height, s.width, s.reduced_pred_size,
-                                     s.total_modes, n_cu)
-        nbytes = (f16.numel() * 2 + run.table.numel() * 4
-                  + run.weights.numel() * 4
-                  + MAIN_BATCH * n_cu * s.total_modes * 4)
-        bound = max(ops / int_rate, nbytes / HBM_BYTES_PER_S) * 1e3
+        if (cw["class"] != f"{s.width}x{s.height}"
+                or cw["n_cu"] != run.table.shape[0]
+                or cw["kernel"] != run.kernel.name):
+            failures.append(f"roofline class {cw} is not run {s}")
+        ops, nbytes = cw["ops"], cw["bytes"]
+        bound = roofline.bound(ops, nbytes, int_rate)[0]
         agg = per_kernel[run.kernel.name]
         agg["ms"] += ms
         agg["plain_ms"] += plain_ms
@@ -904,14 +1067,23 @@ def main() -> int:
             np.random.default_rng(9).integers(
                 0, 1024, (MAIN_H, MAIN_W)).astype(np.int32), dev, card,
             failures)
+        latency_wall = phase_cli_latency(cli_args, tmp, card, failures)
         cli_wall = phase_cli_processes(cli_args, tmp, card, failures)
+        # ---- 10. (g) frame CSV I/O, (h) energy, the roofline tool
+        phase_frame_io(tmp, card, failures)
+        energy = phase_energy(tmp, card, failures)
+    phase_roofline(per_kernel, card, failures)
     print(f"(f) beside the main path's {batch:.3f} ms per batch of "
           f"{MAIN_BATCH} ({card}):")
     for name, ms in mesh_ms.items():
         print(f"  sharded {name}: {ms:.3f} ms per batch ({card})")
     for name, ms in latency_ms.items():
         print(f"  single-frame latency {name}: {ms:.3f} ms ({card})")
-    print(f"  two-process CLI: {cli_wall:.2f} s wall ({card})", flush=True)
+    print(f"  CLI --LatencyMode: {latency_wall:.2f} s wall ({card})")
+    print(f"  two-process CLI: {cli_wall:.2f} s wall ({card})")
+    for n, joules in energy.items():
+        print(f"  (h) energy, {n} frame(s): {joules:.2f} J per frame "
+              f"({card})", flush=True)
     if failures:
         print("FAILED:", *failures, sep="\n  ", file=sys.stderr)
         return 1
@@ -919,28 +1091,25 @@ def main() -> int:
     rows = []
     for k in KERNELS:
         agg = per_kernel[k.name]
-        t_ops = agg["ops"] / int_rate * 1e3
-        t_bytes = agg["bytes"] / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = roofline.bound(agg["ops"], agg["bytes"],
+                                            int_rate)
         rows.append({
             "name": k.name, "route": "cuda", "source": SOURCE,
             "replaces": k.replaces, "launches": launches[k.name],
             "max_abs_err": max_err[k.name], "ms": round(agg["ms"], 4),
             "plain_ms": round(agg["plain_ms"], 2),
-            "bound_ms": round(max(t_ops, t_bytes), 4),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": round(bound_ms, 4), "bound_by": bound_by,
             "library_ms": None, "bit_exact": max_err[k.name] == 0,
             "classes_ms": agg["classes"],
             "classes_bound_ms": agg["class_bounds"],
             "shape": f"{MAIN_BATCH}x{MAIN_W}x{MAIN_H}"})
-    t_ops = pred["ops"] / int_rate * 1e3
-    t_bytes = pred["bytes"] / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = roofline.bound(pred["ops"], pred["bytes"], int_rate)
     rows.append({
         "name": "mip_reduced_pred", "route": "cuda", "source": PRED_SOURCE,
         "replaces": mip_reduced_pred.replaces, "launches": pred_launches,
         "max_abs_err": pred["max_err"], "ms": round(pred["ms"], 4),
         "plain_ms": round(pred["plain_ms"], 3),
-        "bound_ms": round(max(t_ops, t_bytes), 4),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": round(bound_ms, 4), "bound_by": bound_by,
         "library_ms": None, "bit_exact": pred["max_err"] == 0,
         "sizeid_ms": pred["sizeid_ms"],
         "cublas_fp32_product_ms": round(pred["cublas"], 4),

@@ -75,9 +75,34 @@ def _costs(n_ctu, seed):
     return [rng.integers(0, 10 ** 6, (n_ctu, PER_CTU)) for _ in range(3)]
 
 
+# the port's writers: the C writer (the default) and its numpy oracle
+WRITERS = {
+    "c": (texport.export_decisions_csv, texport.export_target_ctu_csv),
+    "numpy": (texport.export_decisions_csv_plain,
+              texport.export_target_ctu_csv_plain),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_csv(tmp_path_factory):
+    """The JAX package's file for a case, written once for both of the
+    port's writers: ``jax_csv(key, write, *args, **kwargs)``."""
+    root = tmp_path_factory.mktemp("jax_csv")
+    done = {}
+
+    def get(key, write, *args, **kwargs):
+        if key not in done:
+            done[key] = root / f"{len(done)}.csv"
+            write(done[key], *args, **kwargs)
+        return done[key]
+
+    return get
+
+
+@pytest.mark.parametrize("writer", sorted(WRITERS))
 @pytest.mark.parametrize("variant", ["msh", "full", "poc", "satd_only",
                                      "negative"])
-def test_decisions_csv_bytes(tmp_path, variant):
+def test_decisions_csv_bytes(tmp_path, variant, writer, jax_csv):
     msh, sad, satd = _costs(3, seed=len(variant))
     kwargs = {"msh": {}, "full": {"sad": sad, "satd": satd},
               "poc": {"sad": sad, "satd": satd, "poc": 12},
@@ -85,21 +110,22 @@ def test_decisions_csv_bytes(tmp_path, variant):
               "negative": {"sad": -sad}}[variant]
     if variant == "negative":
         msh = msh - 500_000
-    texport.export_decisions_csv(tmp_path / "t.csv", msh, 384, **kwargs)
-    jexport.export_decisions_csv(tmp_path / "j.csv", msh, 384, **kwargs)
-    _same(tmp_path / "t.csv", tmp_path / "j.csv")
+    WRITERS[writer][0](tmp_path / "t.csv", msh, 384, **kwargs)
+    _same(tmp_path / "t.csv", jax_csv(variant, jexport.export_decisions_csv,
+                                      msh, 384, **kwargs))
 
 
-def test_target_ctu_csv_bytes_and_best_modes(tmp_path):
+@pytest.mark.parametrize("writer", sorted(WRITERS))
+def test_target_ctu_csv_bytes_and_best_modes(tmp_path, writer, jax_csv):
     msh, sad, satd = _costs(2, seed=7)
-    for kwargs in ({}, {"sad_per_frame": [sad[0], None],
-                        "satd_per_frame": [satd[0], satd[1]],
-                        "pocs": [4, 9]}):
-        texport.export_target_ctu_csv(tmp_path / "t.csv", [msh[0], msh[1]],
-                                      256, 1, **kwargs)
-        jexport.export_target_ctu_csv(tmp_path / "j.csv", [msh[0], msh[1]],
-                                      256, 1, **kwargs)
-        _same(tmp_path / "t.csv", tmp_path / "j.csv")
+    for i, kwargs in enumerate(({}, {"sad_per_frame": [sad[0], None],
+                                     "satd_per_frame": [satd[0], satd[1]],
+                                     "pocs": [4, 9]})):
+        WRITERS[writer][1](tmp_path / "t.csv", [msh[0], msh[1]], 256, 1,
+                           **kwargs)
+        _same(tmp_path / "t.csv", jax_csv(
+            f"target{i}", jexport.export_target_ctu_csv, [msh[0], msh[1]],
+            256, 1, **kwargs))
     got, want = texport.decide_best_modes(msh), jexport.decide_best_modes(msh)
     assert sorted(got) == sorted(want)
     for g in want:

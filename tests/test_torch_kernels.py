@@ -281,3 +281,20 @@ def test_latency_engine_four_parts_on_one_card(regime):
                                                                 ref)
     fields = ("min_sad_had",) if mp else ("sad", "satd", "min_sad_had")
     _assert_costs_equal(got, want, fields)
+
+
+def test_readback_ring_pins_and_reuses_on_the_card():
+    """The CLI's readback ring on the card: pinned host buffers, the
+    values of the device tensors, two slots used in turn."""
+    from vvc_mip_gpu_tpu_torch.utils.readback import ReadbackRing
+
+    ring = ReadbackRing()
+    a = torch.arange(97840 * 3, dtype=torch.int32, device="cuda").view(3, -1)
+    first, none = ring.read(a, None)
+    second, = ring.read(a[1:] * 2)
+    third, = ring.read(a + 5)
+    assert none is None
+    np.testing.assert_array_equal(second, (a[1:] * 2).cpu().numpy())
+    np.testing.assert_array_equal(third, (a + 5).cpu().numpy())
+    np.testing.assert_array_equal(first, third)  # slot 0 again
+    assert all(buf.is_pinned() for buf in ring._buffers.values())

@@ -25,6 +25,16 @@ PORT_FILES = sorted((ROOT / "vvc_mip_gpu_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes,
+    and idle OpenMP threads would spin on cores the other workers use."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _imported_modules(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -40,6 +50,17 @@ def test_port_imports_no_jax(path):
               if m.split(".")[0] in ("jax", "jaxlib", "vvc_mip_gpu_tpu",
                                      "pandas")]
     assert not banned, f"{path.name} imports {banned}"
+
+
+def test_chip_smoke_takes_its_op_model_from_the_roofline_tool():
+    """One op model: chip_smoke.py's bounds come from tools/roofline.py,
+    and it keeps no copy of ``class_ops``."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    defined = {n.name for n in ast.walk(tree)
+               if isinstance(n, ast.FunctionDef)}
+    assert "class_ops" not in defined
+    assert "vvc_mip_gpu_tpu_torch.tools" in set(
+        _imported_modules(ROOT / "chip_smoke.py"))
 
 
 def test_constants_match_reference():
@@ -138,10 +159,13 @@ def test_cu_tables_cover_the_strided_layout_once(size):
         assert table.dtype == np.int32
         assert len(table) == sum(g.n_rows * g.n_cols for g in cplan.groups)
         two_m = cplan.shape.total_modes
-        np.add.at(hits, (table[:, 2:3] + np.arange(two_m)).ravel(), 1)
+        hits += np.bincount((table[:, 2:3] + np.arange(two_m)).ravel(),
+                            minlength=hits.size).astype(np.int8)
         ys = np.concatenate([np.repeat(g.ys, g.n_cols) for g in cplan.groups])
         xs = np.concatenate([np.tile(g.xs, g.n_rows) for g in cplan.groups])
-        assert sorted(zip(table[:, 0], table[:, 1])) == sorted(zip(ys, xs))
+        # the same (y, x) pairs: each pair as one int64 key, sorted
+        assert np.array_equal(np.sort(table[:, 0] * 2 ** 20 + table[:, 1]),
+                              np.sort(ys.astype(np.int64) * 2 ** 20 + xs))
     assert (hits == 1).all()
 
 

@@ -44,6 +44,7 @@ from vvc_mip_gpu_tpu_torch.parallel.mesh import make_mesh, visible_devices
 from vvc_mip_gpu_tpu_torch.parallel.sharded_engine import ShardedMipCostEngine
 from vvc_mip_gpu_tpu_torch.utils.config import EngineConfig
 from vvc_mip_gpu_tpu_torch.utils.pipeline import pipelined
+from vvc_mip_gpu_tpu_torch.utils.readback import ReadbackRing
 from vvc_mip_gpu_tpu_torch.utils.timing import StageTimer, print_timestamp
 
 PLATFORM_ENV = "VVC_MIP_PLATFORM"
@@ -175,14 +176,19 @@ def _searcher(cfg: EngineConfig, device: torch.device, n_pending: int):
     """(chunk size, enqueue, read) of the single-process engine the flags
     select: ``enqueue(frames, refs, pocs)`` starts the search of a chunk
     and ``read(pending, n)`` returns its (msh, sad, satd) host arrays,
-    [n, nCTU, 97840] each (sad, satd None in max-performance runs)."""
+    [n, nCTU, 97840] each (sad, satd None in max-performance runs).  The
+    arrays alias a readback ring's buffers (utils/readback.py): valid
+    until the next-but-one read, which is as long as the pipeline's
+    drain of the chunk needs them."""
     true_n = num_ctus(cfg.width, cfg.height)[2]
+    ring = ReadbackRing()
 
     def host(costs, n):
         # the true frames and the true CTU count: a mesh pads the batch
         # to its data axis and the height to whole bands of CTU rows
-        return tuple(None if t is None else t[:n, :true_n].cpu().numpy()
-                     for t in (costs.min_sad_had, costs.sad, costs.satd))
+        return ring.read(*(None if t is None else t[:n, :true_n]
+                           for t in (costs.min_sad_had, costs.sad,
+                                     costs.satd)))
 
     if cfg.latency_mode:
         engine = LatencyMipCostEngine(cfg.width, cfg.height, local_devices(1),
@@ -193,7 +199,8 @@ def _searcher(cfg: EngineConfig, device: torch.device, n_pending: int):
                                    None if refs is None else refs[pocs[0]])
 
         def read(outs, n):
-            costs = engine.assemble(outs)  # host tensors, [nCTU, 97840]
+            host_fields = ring.read(*engine.gather(outs))
+            costs = engine.finish([torch.from_numpy(a) for a in host_fields])
             return tuple(None if t is None else t[None].numpy()
                          for t in (costs.min_sad_had, costs.sad, costs.satd))
 
@@ -300,10 +307,12 @@ def run(cfg: EngineConfig, synthetic: bool = False,
                 satd_b = None if satd is None else satd[b]
                 _export_frame(cfg, msh[b], sad_b, satd_b, poc=f)
                 if target_ctu is not None:
-                    tgt_msh[f] = msh[b, target_ctu]
-                    tgt_sad[f] = None if sad_b is None else sad_b[target_ctu]
+                    # copies: the chunk's arrays alias the readback ring
+                    tgt_msh[f] = msh[b, target_ctu].copy()
+                    tgt_sad[f] = (None if sad_b is None
+                                  else sad_b[target_ctu].copy())
                     tgt_satd[f] = (None if satd_b is None
-                                   else satd_b[target_ctu])
+                                   else satd_b[target_ctu].copy())
                     report_target_ctu(msh[b], cfg.width, target_ctu,
                                       sad=sad_b, satd=satd_b)
 

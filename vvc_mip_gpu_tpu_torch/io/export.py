@@ -9,11 +9,14 @@ then CU raster index, then mode (non-transposed first).  cuSizeName is
 mirroring the reference's never-read-back buffers
 (main_aux_functions.h:591-619).
 
-At 1080p a frame is ~13.2 M rows (~0.6 GB).  The writer is vectorised
-numpy: a chunk of CTU slabs becomes one byte matrix with a fixed-width
-field per column (digits right-aligned) and a mask of the bytes each row
-keeps; the masked bytes, in row order, are the CSV text.  The output is
-byte-identical to pandas' ``to_csv`` of the same columns.
+At 1080p a frame is ~13.2 M rows (~0.6 GB).  ``export_decisions_csv``
+and ``export_target_ctu_csv`` write through the C writer of
+``csrc/io_native.c`` (``io/native.py``).  Their ``*_plain`` versions are
+vectorised numpy, kept as the oracle the tests and chip_smoke.py hold the
+C writer against: a chunk of CTU slabs becomes one byte matrix with a
+fixed-width field per column (digits right-aligned) and a mask of the
+bytes each row keeps; the masked bytes, in row order, are the CSV text.
+Both are byte-identical to pandas' ``to_csv`` of the same columns.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from vvc_mip_gpu_tpu_torch.constants import (
     GROUPS,
     STRIDED_DISTORTIONS_PER_CTU,
 )
+from vvc_mip_gpu_tpu_torch.io import native
 
 DIST_PER_CTU = int(STRIDED_DISTORTIONS_PER_CTU[-1])
 _SLABS_PER_CHUNK = 8  # ~0.8 M rows, ~60 MB of text per write
@@ -56,6 +60,26 @@ def _per_ctu_columns():
         y_in[sl] = np.repeat(gy.ravel(), m)
         mode[sl] = np.tile(np.arange(m), n)
     return names, w, h, cu, x_in, y_in, mode
+
+
+@functools.cache
+def _heads() -> tuple[np.ndarray, np.ndarray]:
+    """The C writer's per-slab-row "cuSizeName,W,H,CU" strings, uint8
+    [DIST_PER_CTU, HEAD_STRIDE] NUL-padded, and their lengths."""
+    names, w, h, cu, *_ = _per_ctu_columns()
+    text = np.array([b"%s,%d,%d,%d" % row for row in zip(names, w, h, cu)],
+                    f"S{native.HEAD_STRIDE}")
+    return (text.view(np.uint8).reshape(DIST_PER_CTU, native.HEAD_STRIDE),
+            np.char.str_len(text).astype(np.uint8))
+
+
+def _write_native(path, header: str, pocs, ctus, frame_width: int, msh,
+                  sad, satd) -> None:
+    _, _, _, _, x_in, y_in, mode = _per_ctu_columns()
+    heads, head_len = _heads()
+    native.write_decisions_csv(
+        path, header, pocs, ctus, -(-frame_width // CTU_SIZE), CTU_SIZE,
+        heads, head_len, x_in, y_in, mode, msh, sad, satd)
 
 
 def _encode(values: np.ndarray):
@@ -126,12 +150,23 @@ def _costs(a, n_slabs: int) -> np.ndarray | None:
 def export_decisions_csv(path: str | Path, min_sad_had, frame_width: int,
                          sad=None, satd=None,
                          poc: int | None = None) -> None:
-    """Write the decisions log for one frame.
+    """Write the decisions log for one frame, through the C writer.
 
     min_sad_had / sad / satd: [nCTU, DIST_PER_CTU] numpy cost slabs in the
     strided layout (FrameCosts fields read back to the host).  ``poc``
     adds the multi-frame POC column variant (reference:
     main_aux_functions.h:843-906)."""
+    n_ctu = np.shape(min_sad_had)[0]
+    msh, sad, satd = (_costs(a, n_ctu) for a in (min_sad_had, sad, satd))
+    header = _HEADER if poc is None else "POC," + _HEADER
+    _write_native(path, header, None if poc is None else np.full(n_ctu, poc),
+                  np.arange(n_ctu), frame_width, msh, sad, satd)
+
+
+def export_decisions_csv_plain(path: str | Path, min_sad_had,
+                               frame_width: int, sad=None, satd=None,
+                               poc: int | None = None) -> None:
+    """``export_decisions_csv`` in numpy: the C writer's oracle."""
     n_ctu = np.shape(min_sad_had)[0]
     msh, sad, satd = (_costs(a, n_ctu) for a in (min_sad_had, sad, satd))
     ctu_cols = -(-frame_width // CTU_SIZE)
@@ -150,6 +185,22 @@ def export_decisions_csv(path: str | Path, min_sad_had, frame_width: int,
     _write_slabs(path, header, n_ctu, columns)
 
 
+def _target_slabs(msh_per_frame, sad_per_frame, satd_per_frame, pocs):
+    """(pocs, msh, sad, satd) of a target-CTU CSV: int64 [n_frames] and
+    [n_frames, DIST_PER_CTU] each, a frame's missing slab zeros."""
+    n_frames = len(msh_per_frame)
+    pocs = np.arange(n_frames) if pocs is None else np.asarray(pocs)
+
+    def slabs(per_frame) -> np.ndarray:
+        return np.stack([np.zeros(DIST_PER_CTU, np.int64)
+                         if per_frame is None or per_frame[f] is None
+                         else np.asarray(per_frame[f], np.int64).ravel()
+                         for f in range(n_frames)])
+
+    return (pocs.astype(np.int64), *(slabs(p) for p in (
+        msh_per_frame, sad_per_frame, satd_per_frame)))
+
+
 def export_target_ctu_csv(path: str | Path, msh_per_frame, frame_width: int,
                           target_ctu: int, sad_per_frame=None,
                           satd_per_frame=None, pocs=None) -> None:
@@ -163,26 +214,30 @@ def export_target_ctu_csv(path: str | Path, msh_per_frame, frame_width: int,
     ``msh_per_frame``: one [DIST_PER_CTU] slab (the target CTU's row of
     FrameCosts.min_sad_had) per frame.  SAD/SATD default to zeros,
     mirroring the reference's MAX_PERFORMANCE_DIST never-read-back
-    buffers (main_aux_functions.h:591-619).
+    buffers (main_aux_functions.h:591-619).  Written through the C
+    writer.
     """
-    n_frames = len(msh_per_frame)
-    pocs = np.arange(n_frames) if pocs is None else np.asarray(pocs)
+    pocs, msh, sad, satd = _target_slabs(msh_per_frame, sad_per_frame,
+                                         satd_per_frame, pocs)
+    _write_native(path, "POC," + _HEADER, pocs,
+                  np.full(len(pocs), target_ctu), frame_width, msh, sad, satd)
+
+
+def export_target_ctu_csv_plain(path: str | Path, msh_per_frame,
+                                frame_width: int, target_ctu: int,
+                                sad_per_frame=None, satd_per_frame=None,
+                                pocs=None) -> None:
+    """``export_target_ctu_csv`` in numpy: the C writer's oracle."""
+    pocs, msh, sad, satd = _target_slabs(msh_per_frame, sad_per_frame,
+                                         satd_per_frame, pocs)
+    n_frames = len(pocs)
     names, w, h, cu, x_in, y_in, mode = _per_ctu_columns()
     ctu_cols = -(-frame_width // CTU_SIZE)
     ctu_x = (target_ctu % ctu_cols) * CTU_SIZE
     ctu_y = (target_ctu // ctu_cols) * CTU_SIZE
 
-    def slabs(per_frame) -> np.ndarray:
-        return np.stack([np.zeros(DIST_PER_CTU, np.int64)
-                         if per_frame is None or per_frame[f] is None
-                         else np.asarray(per_frame[f], np.int64).ravel()
-                         for f in range(n_frames)])
-
-    msh, sad, satd = (slabs(p) for p in (msh_per_frame, sad_per_frame,
-                                         satd_per_frame))
-
     def columns(s0, s1):
-        return [pocs[s0:s1, None].astype(np.int64), np.int64(target_ctu),
+        return [pocs[s0:s1, None], np.int64(target_ctu),
                 names, w, h, cu, ctu_x + x_in, ctu_y + y_in, mode,
                 sad[s0:s1], satd[s0:s1], msh[s0:s1]]
 

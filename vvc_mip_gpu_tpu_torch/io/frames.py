@@ -3,8 +3,10 @@ frames for tests and the GPU smoke run.
 
 Format (reference: main.cpp:318-387): a text file where each line holds one
 pixel row of comma-separated 10-bit luma samples; frames are concatenated
-vertically (frame f occupies lines [f*H, (f+1)*H)).  Read and written with
-numpy alone.
+vertically (frame f occupies lines [f*H, (f+1)*H)).  Read and written
+through the C reader and writer of ``csrc/io_native.c``
+(``io/native.py``); the ``*_plain`` versions, in numpy, are their oracle
+and define what the C reader accepts and the errors it raises.
 """
 
 from __future__ import annotations
@@ -14,11 +16,40 @@ from pathlib import Path
 
 import numpy as np
 
+from vvc_mip_gpu_tpu_torch.io import native
+
+
+def _shape_error(path, n_lines: int, n_samples: int, start: int, rows: int,
+                 width: int) -> ValueError:
+    return ValueError(
+        f"{path}: got {n_lines} rows and {n_samples} samples from "
+        f"frame {start}, expected {rows} rows of {width}")
+
+
+def _range_error(path) -> ValueError:
+    return ValueError(f"{path}: samples outside 0..65535")
+
 
 def read_frames_csv(path: str | Path, width: int, height: int,
                     n_frames: int, start: int = 0) -> np.ndarray:
     """Read [n_frames, height, width] uint16 samples, skipping the first
-    ``start`` frames."""
+    ``start`` frames, through the C reader: it parses as
+    ``read_frames_csv_plain`` does and raises the same ValueError in the
+    same cases (a wrong row, sample or comma count; a sample outside
+    0..65535)."""
+    rows = height * n_frames
+    data, (n_lines, n_samples, commas_ok, in_range) = native.read_samples_csv(
+        path, width, rows, start * height)
+    if n_lines != rows or n_samples != rows * width or not commas_ok:
+        raise _shape_error(path, n_lines, n_samples, start, rows, width)
+    if n_samples and not in_range:
+        raise _range_error(path)
+    return data.reshape(n_frames, height, width)
+
+
+def read_frames_csv_plain(path: str | Path, width: int, height: int,
+                          n_frames: int, start: int = 0) -> np.ndarray:
+    """``read_frames_csv`` in numpy: the C reader's oracle."""
     rows = height * n_frames
     with open(path, "rb") as f:
         lines = list(itertools.islice(f, start * height,
@@ -28,17 +59,22 @@ def read_frames_csv(path: str | Path, width: int, height: int,
             else np.empty(0, np.int64))
     if (len(lines) != rows or data.size != rows * width
             or any(line.count(b",") != width - 1 for line in lines)):
-        raise ValueError(
-            f"{path}: got {len(lines)} rows and {data.size} samples from "
-            f"frame {start}, expected {rows} rows of {width}")
+        raise _shape_error(path, len(lines), data.size, start, rows, width)
     if data.size and (data.min() < 0 or data.max() > np.iinfo(np.uint16).max):
-        raise ValueError(f"{path}: samples outside 0..65535")
+        raise _range_error(path)
     return data.astype(np.uint16).reshape(n_frames, height, width)
 
 
 def write_frames_csv(path: str | Path, frames: np.ndarray) -> None:
     """Write frames in the reference CSV format (filtered-frame export,
-    reference main.cpp:789-817): one pixel row per line."""
+    reference main.cpp:789-817): one pixel row per line, through the C
+    writer (the bytes of ``write_frames_csv_plain``)."""
+    frames = np.asarray(frames)
+    native.write_samples_csv(path, frames.reshape(-1, frames.shape[-1]))
+
+
+def write_frames_csv_plain(path: str | Path, frames: np.ndarray) -> None:
+    """``write_frames_csv`` in numpy: the C writer's oracle."""
     frames = np.asarray(frames)
     flat = frames.reshape(-1, frames.shape[-1]).astype(np.int64)
     np.savetxt(path, flat, fmt="%d", delimiter=",")

@@ -40,6 +40,7 @@ from vvc_mip_gpu_tpu_torch.parallel.sharded_engine import (
     ShardedMipCostEngine,
     as_frames,
 )
+from vvc_mip_gpu_tpu_torch.utils.readback import ReadbackRing
 
 
 def initialize(coordinator_address: str | None, num_processes: int,
@@ -113,6 +114,7 @@ class DistributedRunner:
             width, height,
             mesh[rank * self.data_per_proc:(rank + 1) * self.data_per_proc],
             max_performance=max_performance)
+        self._ring = ReadbackRing()
 
     def frame_slice(self, n_frames: int) -> range:
         """Global frame indices THIS process ingests/exports.
@@ -149,14 +151,13 @@ class DistributedRunner:
 
     def local_results(self, costs, n_frames: int):
         """Yield (poc, msh, sad, satd) numpy rows [nCTU_padded, 97840] for
-        THIS process's frames only — per-process export, no gather."""
+        THIS process's frames only — per-process export, no gather.  The
+        rows alias the runner's readback ring (utils/readback.py): they
+        stay valid until the next-but-one call."""
         sl = self.frame_slice(n_frames)
-
-        def host(t):
-            return None if t is None else t[:len(sl)].cpu().numpy()
-
-        msh, sad, satd = (host(t) for t in (costs.min_sad_had, costs.sad,
-                                             costs.satd))
+        msh, sad, satd = self._ring.read(*(
+            None if t is None else t[:len(sl)]
+            for t in (costs.min_sad_had, costs.sad, costs.satd)))
         for i, poc in enumerate(sl):
             yield (poc, msh[i],
                    None if sad is None else sad[i],

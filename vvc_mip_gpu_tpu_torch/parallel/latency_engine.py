@@ -130,19 +130,24 @@ class LatencyMipCostEngine:
                          else (sad, satd)))
         return outs
 
-    def assemble(self, outs) -> FrameCosts:
-        """Concatenate the per-part blocks in the strided layout on the
-        first part's device, read them back (blocks until every part
-        finishes), and in the full report take minSadHad on the host.
-        FrameCosts fields are host tensors, [nCTU, 97840]."""
+    def gather(self, outs) -> list[torch.Tensor]:
+        """The device step of :meth:`assemble`: the per-part blocks
+        concatenated in the strided layout on the first part's device,
+        ``[msh]`` in max-performance runs, else ``[sad, satd]``, each
+        [nCTU, 97840]; the current stream waits for every part."""
         dev0 = self._parts[0][0]
         fields: list[dict[int, torch.Tensor]] = [{}, {}]
         for stream, blocks in outs:
             for k, bl in enumerate(blocks):
                 join(stream, *bl.values())
                 fields[k].update(bl)
-        host = [torch.cat([f[g.index].to(dev0) for g in GROUPS], -1)[0].cpu()
+        return [torch.cat([f[g.index].to(dev0) for g in GROUPS], -1)[0]
                 for f in fields[:len(outs[0][1])]]
+
+    def finish(self, host: list[torch.Tensor]) -> FrameCosts:
+        """The host step of :meth:`assemble`: FrameCosts of the gathered
+        fields read back to the host, minSadHad taken here in the full
+        report."""
         if self.max_performance:
             sad = satd = None
             (msh,) = host
@@ -151,6 +156,13 @@ class LatencyMipCostEngine:
             msh = torch.minimum(2 * sad, satd)
         return FrameCosts(sad=sad, satd=satd, min_sad_had=msh,
                           valid=self._valid)
+
+    def assemble(self, outs) -> FrameCosts:
+        """Concatenate the per-part blocks in the strided layout on the
+        first part's device, read them back (blocks until every part
+        finishes), and in the full report take minSadHad on the host.
+        FrameCosts fields are new host tensors, [nCTU, 97840]."""
+        return self.finish([t.cpu() for t in self.gather(outs)])
 
     def __call__(self, frame, ref_frame=None) -> FrameCosts:
         return self.assemble(self.dispatch(frame, ref_frame))
