@@ -52,7 +52,13 @@ of the port's paths through the entry points a user calls, all at
   its energy analysis (tools/compute_energy.py): every stage marker
   paired, a power sample inside the search, joules per stage and frame;
 - the roofline tool's per-class bounds (tools/roofline.py, the op model
-  of every bound here) against the ones this run reports.
+  of every bound here) against the ones this run reports;
+- (i) bench and 4K: one uniform-random and one smooth 3840x2160 frame
+  through MipCostEngine, full report and max-performance, whole tensors
+  (out-of-frame CUs included) against the plain path, tolerance 0; then
+  the port's bench (python -m vvc_mip_gpu_tpu_torch.bench) as a child
+  process in each of its modes and at 3840x2160, each JSON line echoed,
+  and its 1080p headline held against the main path's ms per batch.
 
 Every path runs with the launch counters set to 0 just before it and read
 just after, and fails unless each of its kernels launched.  It prints one
@@ -66,6 +72,7 @@ from __future__ import annotations
 import contextlib
 import filecmp
 import json
+import os
 import re
 import subprocess
 import sys
@@ -77,6 +84,17 @@ import numpy as np
 import torch
 
 MAIN_W, MAIN_H, MAIN_BATCH = 1920, 1080, 16
+UHD_W, UHD_H = 3840, 2160  # phase (i)
+# phase (i): the bench's modes, in order; the 3840x2160 runs need the
+# 3840x2160 check to have passed
+BENCH_RUNS = ([], ["--filtered"], ["--window", "reference"],
+              ["--window", "r1"], ["--with-export"], ["--latency"],
+              ["--resolution", f"{UHD_W}x{UHD_H}"],
+              ["--resolution", f"{UHD_W}x{UHD_H}", "--filtered"])
+# the headline's frames/s against the main path's: the salt XOR and the
+# count take ~15 % of a 1080p batch (the count 1.6 ms), a compile or a
+# sync per batch far more
+HEADLINE_FLOOR = 0.8
 TIMED_ITERS = 10
 FRAME_IO_FRAMES = 16  # phase (g)
 ENERGY_FRAMES = 2  # phase (h): the tracer's sweep, 1..ENERGY_FRAMES
@@ -809,6 +827,115 @@ def phase_roofline(per_kernel: dict, card: str, failures) -> None:
         failures.append(f"roofline tool bounds differ for {bad}")
 
 
+def phase_uhd(dev: torch.device, failures) -> bool:
+    """(i.1) 3840x2160 on the card: a uniform-random and a smooth frame
+    through MipCostEngine.compute_batch with the full report (SAD, SATD,
+    minSadHad), then max-performance; whole tensors, out-of-frame CUs
+    included, against the plain path, tolerance 0, one launch per class
+    in each.  Returns whether all held."""
+    from vvc_mip_gpu_tpu_torch.constants import num_ctus
+    from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import (
+        PER_CTU, FrameCosts, MipCostEngine, class_runs)
+
+    frames = torch.from_numpy(np.stack([
+        np.random.default_rng(13).integers(0, 1024, (UHD_H, UHD_W)),
+        synthetic_frames(1, UHD_W, UHD_H, seed=14)[0]]).astype(
+            np.int32)).to(dev)
+    n_ctu = num_ctus(UHD_W, UHD_H)[2]
+    shape = (2, n_ctu, PER_CTU)
+    f16 = frames.to(torch.int16).contiguous()
+    plain = [torch.full(shape, -1, dtype=torch.int32, device=dev)
+             for _ in range(2)]
+    for run in class_runs(UHD_W, UHD_H, dev):
+        run.kernel.plain(f16, f16, f16[:, 0].contiguous(), True, run.plan,
+                         run.table, run.weights, plain)
+    want = FrameCosts(plain[0], plain[1],
+                      torch.minimum(2 * plain[0], plain[1]), None)
+    bad = []
+    for mp in (False, True):
+        costs, launches = count_launches(lambda: MipCostEngine(
+            UHD_W, UHD_H, max_performance=mp).compute_batch(frames))
+        fields = ("min_sad_had",) if mp else ("sad", "satd", "min_sad_had")
+        diff = differing(costs, want, fields)
+        if launches != [1, 7, 9]:
+            diff.append(f"launches {launches}, want [1, 7, 9]")
+        label = "max-performance" if mp else "full report"
+        print(f"check {UHD_W}x{UHD_H} {label}, noise and smooth frames "
+              f"({n_ctu} CTUs, {2 * n_ctu * PER_CTU} entries a field): "
+              f"launches {launches}; whole tensors vs the plain path: "
+              f"{'bit-exact' if not diff else diff}", flush=True)
+        bad += [f"{label}: {d}" for d in diff]
+        del costs
+    if bad:
+        failures.append(f"{UHD_W}x{UHD_H}: {bad}")
+    return not bad
+
+
+def phase_bench(main_ms: float, frames: torch.Tensor, msh: torch.Tensor,
+                uhd_ok: bool, card: str, failures) -> None:
+    """(i.2) the port's bench as a child process in each mode of
+    BENCH_RUNS, on this card; each JSON line echoed on a line of its own.
+    A run fails on a nonzero exit, an error, a value <= 0 or cost kernel
+    launches not in the proportion 1 / 7 / 9; the 1080p headline fails
+    below HEADLINE_FLOOR x the main path's frames/s of this run.  First,
+    what the headline's window adds to each batch of the main path (the
+    salt XOR and the count of the costs), timed here on the main path's
+    ``frames`` and minSadHad ``msh``."""
+    out = torch.empty_like(frames)
+    salts = torch.arange(frames.shape[0], dtype=frames.dtype,
+                         device=frames.device).view(-1, 1, 1)
+    xor_ms = Timer(lambda: torch.bitwise_xor(frames, salts, out=out),
+                   TIMED_ITERS).ms
+    count_ms = Timer(lambda: torch.count_nonzero(msh), TIMED_ITERS).ms
+    print(f"bench window parts per batch of {frames.shape[0]}: main path "
+          f"{main_ms:.3f} ms + salt XOR {xor_ms:.3f} ms + count_nonzero of "
+          f"{msh.numel() * 4 / 1e6:.1f} MB {count_ms:.3f} ms = "
+          f"{main_ms + xor_ms + count_ms:.3f} ms ({card})", flush=True)
+    del out
+    env = {k: v for k, v in os.environ.items() if k != "VVC_MIP_PLATFORM"}
+    torch.cuda.empty_cache()
+    for extra in BENCH_RUNS:
+        label = " ".join(extra) or "(headline)"
+        if f"{UHD_W}x{UHD_H}" in extra and not uhd_ok:
+            failures.append(f"bench {label}: not run, the {UHD_W}x{UHD_H} "
+                            f"check failed")
+            continue
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "vvc_mip_gpu_tpu_torch.bench", *extra],
+            cwd=Path(__file__).resolve().parent, env=env,
+            capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+        for line in lines:
+            print(line)
+        rec = json.loads(lines[-1]) if lines else {}
+        launches = list(rec.get("launches", {}).values())
+        bad = []
+        if r.returncode or len(lines) != 1 or "error" in rec:
+            bad.append(f"rc {r.returncode}, {len(lines)} JSON lines, "
+                       f"error {rec.get('error')}: {r.stderr[-2000:]}")
+        elif not rec["value"] > 0:
+            bad.append(f"value {rec['value']}")
+        elif not (len(launches) == 3 and launches[0] > 0
+                  and launches[1:] == [7 * launches[0], 9 * launches[0]]):
+            bad.append(f"launches {rec.get('launches')}")
+        if not extra and not bad:
+            floor = HEADLINE_FLOOR * MAIN_BATCH * 1e3 / main_ms
+            print(f"bench headline {rec['value']} frames/s "
+                  f"({MAIN_BATCH * 1e3 / rec['value']:.3f} ms a batch on the "
+                  f"host's clock, {rec['device_ms_per_batch']} on the card's) "
+                  f"against {HEADLINE_FLOOR} x {MAIN_BATCH} / {main_ms:.3f} "
+                  f"ms = {floor:.1f} frames/s ({card})")
+            if rec["value"] < floor:
+                bad.append(f"{rec['value']} frames/s below {floor:.1f}")
+        print(f"bench {label}: rc {r.returncode}, {wall:.1f} s wall"
+              f"{'' if not bad else ', FAILED ' + str(bad)}", flush=True)
+        if bad:
+            failures.append(f"bench {label}: {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1073,6 +1200,9 @@ def main() -> int:
         phase_frame_io(tmp, card, failures)
         energy = phase_energy(tmp, card, failures)
     phase_roofline(per_kernel, card, failures)
+    # ---- 11. (i) 3840x2160 bit-exact, then the bench in every mode
+    phase_bench(batch, frames, msh, phase_uhd(dev, failures), card,
+                failures)
     print(f"(f) beside the main path's {batch:.3f} ms per batch of "
           f"{MAIN_BATCH} ({card}):")
     for name, ms in mesh_ms.items():
