@@ -23,8 +23,9 @@ of the port's paths through the entry points a user calls, all at
 - (a) the reduced-prediction kernel against its plain version on the
   reduced boundaries of every class of a noise and a smooth frame, timed
   beside its bound and a cuBLAS fp32 product of the same shapes;
-- (b) the 8 filters x every KernelIdx on the card against the CPU, timed
-  at batch 16;
+- (b) the 8 filters x every KernelIdx on the card against the CPU and
+  against the port's NumPy golden filters (golden/filters_golden.py) at
+  1920x1080, on a noise and a smooth frame, timed at batch 16;
 - (c) the filtered regime with the full report (SAD, SATD, minSadHad)
   over 16 frames, against the plain path on frames 0-1, timed;
 - (d) the inspect readback on the card (through the reduced-prediction
@@ -58,7 +59,15 @@ of the port's paths through the entry points a user calls, all at
   (out-of-frame CUs included) against the plain path, tolerance 0; then
   the port's bench (python -m vvc_mip_gpu_tpu_torch.bench) as a child
   process in each of its modes and at 3840x2160, each JSON line echoed,
-  and its 1080p headline held against the main path's ms per batch.
+  and its 1080p headline held against the main path's ms per batch;
+- (j) the port's in-context profiler (tools/profile_incontext.py) at
+  1920x1080 with --loo (e2e, each class alone, their sum, each class left
+  out) on one frame and on a batch of 16, then --batch 1, 4, 8, 16, 32
+  and --batch 16 --class 8x16, every run's launches per call held to the
+  classes it searched; the host's CPU filtering sweep
+  (tools/profile_cpu_filtering.py, 1 to the host's CPU count workers,
+  every band bit-equal to the whole frame) beside the card's filter ms
+  per frame for the same four variants.
 
 Every path runs with the launch counters set to 0 just before it and read
 just after, and fails unless each of its kernels launched.  It prints one
@@ -78,6 +87,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -104,6 +114,11 @@ SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_cost.cu"
 PRED_SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_pred.cu"
 FILTER = ("filterFrame_2d_int_quarterCtu", 2)  # the filtered-regime phases
 CLI_TARGET_CTU = 5
+# phase (j): the sweep on one frame, where a class alone is host-bound,
+# and on the main path's batch; the batch sweep; one class in a batch
+INCONTEXT_RUNS = (["--loo"], ["--loo", "--batch", str(MAIN_BATCH)],
+                  *(["--batch", str(b)] for b in (1, 4, 8, 16, 32)),
+                  ["--batch", "16", "--class", "8x16"])
 # every cost launch, each redesigned for Hopper (one thread per CU for
 # 4x4; 8 threads per (CU, mode) for 64x64; one thread per (CU, mode,
 # 4-column strip) for the other 15 classes): ptxas must report no spills
@@ -227,27 +242,48 @@ def phase_pred(noise16, smooth16, int_rate: float, failures) -> dict:
 
 
 def phase_filters(batch: torch.Tensor, failures) -> None:
-    """(b) filter_frames on the card against the CPU, all 8 variants x
-    every KernelIdx, on a noise and a smooth frame; then each variant's
-    time on the batch (KernelIdx 2)."""
+    """(b) filter_frames on the card against the CPU and against the
+    port's NumPy golden filters (the oracle, on a thread per host CPU:
+    NumPy releases the GIL), all 8 variants x every KernelIdx, on a noise
+    and a smooth frame; then each variant's time on the batch (KernelIdx
+    2)."""
     from vvc_mip_gpu_tpu_torch.constants import AVAILABLE_FILTERS
+    from vvc_mip_gpu_tpu_torch.golden.filters_golden import filter_frame
     from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
     from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+    from vvc_mip_gpu_tpu_torch.tools.profile_cpu_filtering import host_cpus
 
     rng = np.random.default_rng(3)
-    cpu = torch.from_numpy(np.stack([
-        rng.integers(0, 1024, (MAIN_H, MAIN_W)),
-        synthetic_frames(1, MAIN_W, MAIN_H, seed=4)[0]]).astype(np.int32))
+    host = np.stack([rng.integers(0, 1024, (MAIN_H, MAIN_W)),
+                     synthetic_frames(1, MAIN_W, MAIN_H, seed=4)[0]])
+    cpu = torch.from_numpy(host.astype(np.int32))
     card = cpu.to(batch.device)
     pairs = [(ftype, kidx) for ftype in AVAILABLE_FILTERS
              for kidx in range(3 if "5x5" in ftype else 5)]
-    bad = [f"{ftype}[{kidx}]" for ftype, kidx in pairs
-           if not torch.equal(filter_frames(card, ftype, kidx).cpu(),
-                              filter_frames(cpu, ftype, kidx))]
+
+    def oracle_equal(pair, got: np.ndarray) -> bool:
+        return all(np.array_equal(filter_frame(frame, *pair), out)
+                   for frame, out in zip(host, got))
+
+    t0 = time.perf_counter()
+    bad, futures = [], {}
+    with ThreadPoolExecutor(host_cpus()) as pool:
+        for ftype, kidx in pairs:
+            got = filter_frames(card, ftype, kidx).cpu()
+            if not torch.equal(got, filter_frames(cpu, ftype, kidx)):
+                bad.append(f"{ftype}[{kidx}] vs the CPU")
+            futures[f"{ftype}[{kidx}]"] = pool.submit(oracle_equal,
+                                                      (ftype, kidx),
+                                                      got.numpy())
+        bad += [f"{name} vs the oracle" for name, f in futures.items()
+                if not f.result()]
     if bad:
-        failures.append(f"filters differ on the card from the CPU: {bad}")
-    print(f"check filters: {len(pairs)} variant/KernelIdx pairs, card vs "
-          f"CPU: {'bit-exact' if not bad else 'DIFFER ' + str(bad)}")
+        failures.append(f"filters differ on the card: {bad}")
+    print(f"check filters {MAIN_W}x{MAIN_H}: {len(pairs)} variant/KernelIdx "
+          f"pairs x {len(host)} frames (noise, smooth), card vs CPU and vs "
+          f"the NumPy golden filters: "
+          f"{'bit-exact' if not bad else 'DIFFER ' + str(bad)} "
+          f"({time.perf_counter() - t0:.1f} s)")
     for ftype in AVAILABLE_FILTERS:
         ms = Timer(lambda: filter_frames(batch, ftype, 2), 5).ms
         print(f"filter {ftype}[2]: {ms:.3f} ms per batch of "
@@ -936,6 +972,91 @@ def phase_bench(main_ms: float, frames: torch.Tensor, msh: torch.Tensor,
             failures.append(f"bench {label}: {bad}")
 
 
+def phase_profiles(frames: torch.Tensor, per_kernel: dict, card: str,
+                   failures) -> dict:
+    """(j) the in-context profiler at 1920x1080 through its entry point,
+    each of INCONTEXT_RUNS: every run's launches per call must be those of
+    the classes it searched (1 / 7 / 9 for the whole search, one for a
+    class alone, one fewer for a class left out), each sweep with 17
+    classes alone and 17 left out.  The batch-16 sweep is printed beside
+    each class's kernel time on the main path (``per_kernel``).  Then the
+    host's CPU filtering sweep (every band bit-equal to the whole frame)
+    beside the card's filter ms per frame on the main path's batch, for
+    the sweep's variants.  Returns {batch: ms/frame}."""
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+    from vvc_mip_gpu_tpu_torch.ops.geometry import class_plans
+    from vvc_mip_gpu_tpu_torch.tools import (
+        profile_cpu_filtering, profile_incontext)
+
+    size_id = {f"{cp.shape.width}x{cp.shape.height}": cp.shape.size_id
+               for cp in class_plans(MAIN_W, MAIN_H)}
+    whole = [1, 7, 9]
+    records, per_frame, sweep = [], {}, {}
+    for argv in INCONTEXT_RUNS:
+        print(f"profile_incontext {' '.join(argv)}:", flush=True)
+        try:
+            recs = profile_incontext.main(argv)
+        except RuntimeError as err:
+            failures.append(f"profile_incontext {argv}: {err}")
+            continue
+        records += recs
+        if argv[0] == "--batch" and len(argv) == 2:  # the batch sweep
+            per_frame[int(argv[1])] = recs[0]["ms_per_frame"]
+        if "--loo" in argv and recs[0]["frames"] == MAIN_BATCH:
+            sweep = {(rec["what"], rec["class"]): rec for rec in recs}
+    bad = []
+    for rec in records:
+        if rec["what"] == "sum":
+            continue
+        own = ([int(size_id[rec["class"]] == k) for k in range(3)]
+               if rec["class"] else [0, 0, 0])
+        want = {"e2e": whole, "alone": own,
+                "without": [w - o for w, o in zip(whole, own)]}[rec["what"]]
+        if rec["launches"] != want or not rec["ms"] > 0:
+            bad.append(f"{rec['what']} {rec['class']}: launches "
+                       f"{rec['launches']}, want {want}, {rec['ms']} ms")
+    n_loo = sum("--loo" in argv for argv in INCONTEXT_RUNS)
+    n_class = sum("--class" in argv for argv in INCONTEXT_RUNS)
+    want = (17 * n_loo + n_class, 17 * n_loo,
+            len(INCONTEXT_RUNS) - n_class, n_loo)
+    kinds = [rec["what"] for rec in records]
+    got = tuple(kinds.count(k) for k in ("alone", "without", "e2e", "sum"))
+    if got != want:
+        bad.append(f"records alone/without/e2e/sum {got}, want {want}")
+    if bad:
+        failures.append(f"profile_incontext: {bad}")
+    kernel_ms = {name: ms for agg in per_kernel.values()
+                 for name, ms in agg["classes"].items()}
+    for name, ms in kernel_ms.items():
+        alone, left = sweep.get(("alone", name)), sweep.get(("without", name))
+        if alone and left:
+            print(f"in context, batch {MAIN_BATCH}, {name}: alone "
+                  f"{alone['ms']:.4f} ms, its kernel {ms:.4f} ms, left-out "
+                  f"delta {left['delta_ms']:+.4f} ms ({card})")
+    print(f"profile_incontext: {len(records)} records, launches per call "
+          f"{'as searched' if not bad else f'WRONG in {len(bad)}'}; ms per "
+          f"frame by batch: "
+          + ", ".join(f"{b}: {ms:.4f}" for b, ms in per_frame.items())
+          + f" ({card})", flush=True)
+
+    ncpu = profile_cpu_filtering.host_cpus()
+    try:
+        table = profile_cpu_filtering.main(["--max-workers", str(ncpu)])
+    except RuntimeError as err:
+        failures.append(f"profile_cpu_filtering: {err}")
+        return per_frame
+    for ftype, by_workers in table.items():
+        batch_ms = Timer(lambda: filter_frames(frames, ftype, 0), 5).ms
+        one_ms = Timer(lambda: filter_frames(frames[:1], ftype, 0), 10).ms
+        best = min(by_workers, key=by_workers.get)
+        print(f"filter {ftype}[0] {MAIN_W}x{MAIN_H}: card "
+              f"{batch_ms / frames.shape[0]:.4f} ms/frame in a batch of "
+              f"{frames.shape[0]}, {one_ms:.4f} ms one frame; host CPU "
+              f"{by_workers[1]:.1f} ms with 1 worker, {by_workers[best]:.1f} "
+              f"ms with {best} of {ncpu} CPUs ({card})", flush=True)
+    return per_frame
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1203,6 +1324,8 @@ def main() -> int:
     # ---- 11. (i) 3840x2160 bit-exact, then the bench in every mode
     phase_bench(batch, frames, msh, phase_uhd(dev, failures), card,
                 failures)
+    # ---- 12. (j) the in-context profiler and the CPU filtering sweep
+    incontext = phase_profiles(frames, per_kernel, card, failures)
     print(f"(f) beside the main path's {batch:.3f} ms per batch of "
           f"{MAIN_BATCH} ({card}):")
     for name, ms in mesh_ms.items():
@@ -1213,6 +1336,9 @@ def main() -> int:
     print(f"  two-process CLI: {cli_wall:.2f} s wall ({card})")
     for n, joules in energy.items():
         print(f"  (h) energy, {n} frame(s): {joules:.2f} J per frame "
+              f"({card})", flush=True)
+    for b, ms in incontext.items():
+        print(f"  (j) in-context search, batch {b}: {ms:.4f} ms per frame "
               f"({card})", flush=True)
     if failures:
         print("FAILED:", *failures, sep="\n  ", file=sys.stderr)
