@@ -43,9 +43,12 @@ of the port's paths through the entry points a user calls, all at
   regimes; the CLI's latency path, which reads back through the pinned
   readback ring, and two CLI processes (gloo on localhost) with (e)'s
   flags, whose CSVs must equal (e)'s byte for byte (then all are
-  deleted); each timed (ms per batch, single-frame latency host to host
-  and by step, the readback into new pageable memory and into the ring,
-  CLI wall time);
+  deleted); the JAX package's two multi-process cases at 256x192 (one
+  process owning no frame under a filter and a target CTU; 3 frames over
+  two processes with --MeshSpace 2), each byte-equal to a single-process
+  run with the same flags; each timed (ms per batch, single-frame latency
+  host to host and by step, the readback into new pageable memory and
+  into the ring, CLI wall time);
 - (g) the C frame-CSV writer and reader against the numpy ones on 16
   frames, byte for byte and sample for sample, timed;
 - (h) the port's power tracer (tools/power_tracer.py, nvidia-smi as the
@@ -67,7 +70,22 @@ of the port's paths through the entry points a user calls, all at
   classes it searched; the host's CPU filtering sweep
   (tools/profile_cpu_filtering.py, 1 to the host's CPU count workers,
   every band bit-equal to the whole frame) beside the card's filter ms
-  per frame for the same four variants.
+  per frame for the same four variants;
+- (k) the card's costs against the port's own golden cost oracles, on
+  valid CUs (the golden model clips out-of-frame CU coordinates, the
+  port replicates edges), in int64, each validity mask against the
+  golden model's: the golden model (golden/reference_model.py), its 47
+  groups a frame on a spawned process pool while the card works, against
+  (k.1a) the main path's own minSadHad of frame 0, (k.1b) the full report
+  of frame 0 (launches 1 / 7 / 9) and (k.2) the full report of a smooth
+  frame filtered on the card, the golden model fed by
+  golden/filters_golden.py; the scalar oracle (golden/scalar_oracle.py)
+  against (k.3) 1128 (CU, mode) entries of phase (i)'s two 3840x2160
+  frames (every group: the top-left CTU, the top row, the left and the
+  last column, the partial bottom row of 112, an interior CTU; a normal
+  and a transposed mode) and (k.1c) ~560 of frame 0 at 1920x1080, the
+  card's and the golden model's.  It runs last, where no phase times the
+  host, and prints the golden model's seconds a frame and its workers.
 
 Every path runs with the launch counters set to 0 just before it and read
 just after, and fails unless each of its kernels launched.  It prints one
@@ -114,6 +132,14 @@ SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_cost.cu"
 PRED_SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_pred.cu"
 FILTER = ("filterFrame_2d_int_quarterCtu", 2)  # the filtered-regime phases
 CLI_TARGET_CTU = 5
+# phase (f.3): the JAX package's two multi-process cases
+# (tests/test_multiprocess.py:178 and :80-81) at 256x192
+MULTI_PROCESS_CASES = {
+    "one process owning no frame": [
+        "-f", "1", "-s", "256x192", "--Synthetic", "--FilterType", FILTER[0],
+        "--KernelIdx", str(FILTER[1]), "--TargetCTU", "1"],
+    "3 frames, --MeshSpace 2": [
+        "-f", "3", "-s", "256x192", "--Synthetic", "--MeshSpace", "2"]}
 # phase (j): the sweep on one frame, where a class alone is host-bound,
 # and on the main path's batch; the batch sweep; one class in a batch
 INCONTEXT_RUNS = (["--loo"], ["--loo", "--batch", str(MAIN_BATCH)],
@@ -746,6 +772,46 @@ def phase_cli_processes(cli_args: list[str], tmp: str, card: str,
     return wall
 
 
+def phase_cli_process_cases(tmp: str, card: str, failures) -> dict:
+    """(f.3) the two multi-process cases of the JAX package's tests
+    (tests/test_multiprocess.py), at 256x192 on this card: one process
+    owning no frame under a filter and a target CTU, and 3 frames over two
+    processes on a (1, 2) mesh each.  Each case's files must equal a
+    single-process CLI run's with the same flags, byte for byte.  Returns
+    {case: wall seconds of the two processes}."""
+    from vvc_mip_gpu_tpu_torch.parallel.distributed import launch_cli
+
+    walls = {}
+    for name, args in MULTI_PROCESS_CASES.items():
+        case = Path(tempfile.mkdtemp(dir=tmp))
+        one, two = case / "one", case / "two"
+        for d in (one, two):
+            d.mkdir()
+        rc, _, _ = cli_in_process(args + ["-l", str(one / "c_")],
+                                  case / "stdout.txt")
+        t0 = time.perf_counter()
+        try:
+            launch_cli(args + ["-l", str(two / "c_")], 2, timeout=300)
+        except RuntimeError as err:
+            failures.append(f"two-process CLI, {name}: {str(err)[-3000:]}")
+            continue
+        finally:
+            walls[name] = time.perf_counter() - t0
+        files = sorted(p.name for p in one.iterdir())
+        bad = [] if files == sorted(p.name for p in two.iterdir()) else [
+            "the file sets differ"]
+        bad += [f for f in files if not filecmp.cmp(one / f, two / f,
+                                                    shallow=False)]
+        if rc or not files or bad:
+            failures.append(f"two-process CLI, {name}: single-process rc "
+                            f"{rc}, files {files}, differing {bad}")
+        print(f"two-process CLI, {name} ({' '.join(args)}): "
+              f"{walls[name]:.2f} s wall; {len(files)} files ({files}) equal "
+              f"the single-process run's byte for byte: {not bad and not rc} "
+              f"({card})", flush=True)
+    return walls
+
+
 def phase_frame_io(tmp: str, card: str, failures) -> None:
     """(g) the C frame-CSV writer and reader (csrc/io_native.c) against
     the numpy ones: 16 synthetic frames written by both must be byte
@@ -863,6 +929,16 @@ def phase_roofline(per_kernel: dict, card: str, failures) -> None:
         failures.append(f"roofline tool bounds differ for {bad}")
 
 
+def uhd_frames() -> np.ndarray:
+    """The two 3840x2160 frames of phases (i) and (k): uniform-random
+    noise and a smooth frame, int32 [2, H, W]."""
+    from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+
+    return np.stack([
+        np.random.default_rng(13).integers(0, 1024, (UHD_H, UHD_W)),
+        synthetic_frames(1, UHD_W, UHD_H, seed=14)[0]]).astype(np.int32)
+
+
 def phase_uhd(dev: torch.device, failures) -> bool:
     """(i.1) 3840x2160 on the card: a uniform-random and a smooth frame
     through MipCostEngine.compute_batch with the full report (SAD, SATD,
@@ -870,14 +946,10 @@ def phase_uhd(dev: torch.device, failures) -> bool:
     included, against the plain path, tolerance 0, one launch per class
     in each.  Returns whether all held."""
     from vvc_mip_gpu_tpu_torch.constants import num_ctus
-    from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
     from vvc_mip_gpu_tpu_torch.models.cost_engine import (
         PER_CTU, FrameCosts, MipCostEngine, class_runs)
 
-    frames = torch.from_numpy(np.stack([
-        np.random.default_rng(13).integers(0, 1024, (UHD_H, UHD_W)),
-        synthetic_frames(1, UHD_W, UHD_H, seed=14)[0]]).astype(
-            np.int32)).to(dev)
+    frames = torch.from_numpy(uhd_frames()).to(dev)
     n_ctu = num_ctus(UHD_W, UHD_H)[2]
     shape = (2, n_ctu, PER_CTU)
     f16 = frames.to(torch.int16).contiguous()
@@ -1055,6 +1127,254 @@ def phase_profiles(frames: torch.Tensor, per_kernel: dict, card: str,
               f"{by_workers[1]:.1f} ms with 1 worker, {by_workers[best]:.1f} "
               f"ms with {best} of {ncpu} CPUs ({card})", flush=True)
     return per_frame
+
+
+def golden_futures(pool, frame: np.ndarray, ref: np.ndarray, done: list):
+    """The golden model's 47 groups of one frame submitted to ``pool``,
+    the largest (CUs x modes x samples a CTU) first; {group: future}.
+    Each future appends its completion time to ``done``."""
+    from vvc_mip_gpu_tpu_torch.constants import GROUPS
+    from vvc_mip_gpu_tpu_torch.golden import reference_model as gm
+
+    futures = {}
+    for g in sorted(GROUPS, key=lambda g: -g.cus_per_ctu * g.total_modes
+                    * g.width * g.height):
+        futures[g.index] = pool.submit(gm.group_costs, frame, ref, g.index)
+        futures[g.index].add_done_callback(
+            lambda _: done.append(time.perf_counter()))
+    return futures
+
+
+def strided_index(j: int) -> tuple[int, int, int]:
+    """(group, CU, mode) of index ``j`` of a CTU's strided cost slab."""
+    from vvc_mip_gpu_tpu_torch.constants import (
+        GROUPS, STRIDED_DISTORTIONS_PER_CTU)
+
+    g = int(np.searchsorted(STRIDED_DISTORTIONS_PER_CTU, j, "right")) - 1
+    cu, mode = divmod(j - int(STRIDED_DISTORTIONS_PER_CTU[g]),
+                      GROUPS[g].total_modes)
+    return g, cu, mode
+
+
+def golden_differences(label: str, golden: dict, fields: dict,
+                       valid: torch.Tensor) -> list[str]:
+    """The card's ``fields`` ({name: [nCTU, 97840] tensor}) of one frame
+    against the golden model's costs, in int64, on valid CUs only, and
+    the card's validity mask against the golden model's per-group masks.
+    Prints the count of entries compared and the first mismatching (CTU,
+    group, CU, mode); returns what differs."""
+    from vvc_mip_gpu_tpu_torch.constants import GROUPS
+    from vvc_mip_gpu_tpu_torch.golden import reference_model as gm
+
+    mask = valid.cpu().numpy()
+    bad = []
+    if not np.array_equal(mask, np.concatenate(
+            [np.repeat(golden[g.index].valid, g.total_modes, axis=1)
+             for g in GROUPS], axis=1)):
+        bad.append("validity mask")
+    for name, t in fields.items():
+        got = t.cpu().numpy().astype(np.int64)
+        want = gm.flatten_strided(golden, name)
+        mism = np.argwhere((got != want) & mask)
+        if len(mism):
+            ctu, j = (int(v) for v in mism[0])
+            g, cu, mode = strided_index(j)
+            bad.append(f"{name}: {len(mism)} valid entries, first at CTU "
+                       f"{ctu} group {g} ({GROUPS[g].name}) CU {cu} mode "
+                       f"{mode}: card {got[ctu, j]}, golden {want[ctu, j]}")
+    print(f"check golden {label}: {', '.join(fields)}, {int(mask.sum())} "
+          f"valid entries each vs the golden model, validity mask: "
+          f"{'bit-exact, mask equal' if not bad else bad}", flush=True)
+    return bad
+
+
+def spot_cus(width: int, height: int, seed: int) -> list[tuple]:
+    """Valid CUs for the scalar oracle: per group, one from each of the
+    top-left CTU, the top CTU row, the left and the last CTU column, the
+    bottom CTU row (partial where the height is not a multiple of 128:
+    only CUs whose full height lies inside the frame) and an interior
+    CTU, each with a random normal and a random transposed mode.  Returns
+    [(where, CTU, group, CU, x, y, mode)]."""
+    from vvc_mip_gpu_tpu_torch.constants import GROUPS, num_ctus
+    from vvc_mip_gpu_tpu_torch.golden import reference_model as gm
+
+    cols, rows, n_ctu = num_ctus(width, height)
+    rng = np.random.default_rng(seed)
+    out = []
+    for g in GROUPS:
+        xs, ys = gm.global_positions(g.index, width, height)
+        valid = (xs + g.width <= width) & (ys + g.height <= height)
+        where = {
+            "top-left": 0, "top row": int(rng.integers(1, cols)),
+            "left column": int(rng.integers(1, rows - 1)) * cols,
+            "last column": int(rng.integers(1, rows - 1)) * cols + cols - 1,
+            "bottom row": n_ctu - cols + int(rng.integers(cols)),
+            "interior": int(rng.integers(1, rows - 1)) * cols
+            + int(rng.integers(1, cols - 1))}
+        for name, ctu in where.items():
+            cus = np.flatnonzero(valid[ctu])
+            if not len(cus):  # e.g. no 64x64 CU fits 56 rows
+                continue
+            cu = int(rng.choice(cus))
+            for mode in (int(rng.integers(g.num_modes)),
+                         g.num_modes + int(rng.integers(g.num_modes))):
+                out.append((name, ctu, g.index, cu, int(xs[ctu, cu]),
+                            int(ys[ctu, cu]), mode))
+    return out
+
+
+def scalar_differences(frame: np.ndarray, spots: list, got: list) -> list:
+    """The scalar oracle's (SAD, SATD, minSadHad) of each spot of
+    ``spot_cus`` on ``frame`` (original samples) against ``got``, a
+    (sad, satd, msh) triple per spot; the differing spots."""
+    from vvc_mip_gpu_tpu_torch.constants import GROUPS
+    from vvc_mip_gpu_tpu_torch.golden import scalar_oracle as so
+
+    bad = []
+    for spot, triple in zip(spots, got):
+        _, ctu, group, cu, x, y, mode = spot
+        g = GROUPS[group]
+        want = so.cu_cost(frame, frame, x, y, g.width, g.height, g.size_id,
+                          mode)
+        if tuple(int(v) for v in triple) != want:
+            bad.append(f"CTU {ctu} group {group} ({g.name}) CU {cu} at "
+                       f"({x}, {y}) mode {mode}: {tuple(triple)} vs the "
+                       f"oracle's {want}")
+    return bad
+
+
+def spot_values(costs, b: int, spots: list) -> list:
+    """(SAD, SATD, minSadHad) of frame ``b`` of a full-report FrameCosts
+    at each spot of ``spot_cus``, gathered on the card."""
+    from vvc_mip_gpu_tpu_torch.constants import (
+        GROUPS, STRIDED_DISTORTIONS_PER_CTU)
+
+    ctu = torch.tensor([s[1] for s in spots], device=costs.sad.device)
+    j = torch.tensor([int(STRIDED_DISTORTIONS_PER_CTU[s[2]])
+                      + s[3] * GROUPS[s[2]].total_modes + s[6]
+                      for s in spots], device=costs.sad.device)
+    fields = [t[b, ctu, j].cpu().tolist()
+              for t in (costs.sad, costs.satd, costs.min_sad_had)]
+    return list(zip(*fields))
+
+
+def phase_golden(frames: torch.Tensor, main_costs, card: str,
+                 failures) -> dict:
+    """(k) the card's costs against the port's own golden cost oracles:
+    the golden model (golden/reference_model.py) at 1920x1080, its 47
+    groups of each frame in a spawned process pool (the parent holds a
+    CUDA context) while the card works, and the scalar oracle
+    (golden/scalar_oracle.py) at 3840x2160 and at 1920x1080.  Valid CUs
+    only, and each validity mask against the golden model's.  Returns
+    the golden model's timing."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from vvc_mip_gpu_tpu_torch.golden.filters_golden import filter_frame
+    from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+    from vvc_mip_gpu_tpu_torch.tools.profile_cpu_filtering import host_cpus
+
+    t_phase = time.perf_counter()
+    dev = frames.device
+    # one worker a CPU this process may run on (os.cpu_count() may count
+    # the whole host's, and each worker holds up to ~3 GB)
+    workers = host_cpus()
+    noise = frames[0].cpu().numpy().astype(np.int64)
+    smooth = synthetic_frames(1, MAIN_W, MAIN_H, seed=5)[0].astype(np.int64)
+    full = MipCostEngine(MAIN_W, MAIN_H)
+    bad = []
+    done: list[float] = []
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        t_pool = time.perf_counter()
+        pending = {"noise": golden_futures(pool, noise, noise, done),
+                   "smooth filtered": golden_futures(
+                       pool, smooth, filter_frame(smooth, *FILTER), done)}
+        # the card meanwhile: (k.1b) frame 0's full report, (k.2) the
+        # smooth frame's filtered full report, (k.3) 3840x2160
+        noise_full, launches = count_launches(
+            lambda: full.compute_batch(frames[:1]))
+        if launches != [1, 7, 9]:
+            bad.append(f"(k.1) full report launches {launches}")
+        smooth_card = torch.from_numpy(smooth.astype(np.int32))[None].to(dev)
+        smooth_full, launches = count_launches(lambda: full.compute_batch(
+            smooth_card, filter_frames(smooth_card, *FILTER)))
+        if launches != [1, 7, 9]:
+            bad.append(f"(k.2) filtered full report launches {launches}")
+        uhd = uhd_frames()
+        uhd_costs, launches = count_launches(lambda: MipCostEngine(
+            UHD_W, UHD_H).compute_batch(torch.from_numpy(uhd).to(dev)))
+        if launches != [1, 7, 9]:
+            bad.append(f"(k.3) {UHD_W}x{UHD_H} launches {launches}")
+        t0 = time.perf_counter()
+        spots = spot_cus(UHD_W, UHD_H, seed=15)
+        n_bottom = sum(s[0] == "bottom row" for s in spots)
+        uhd_bad = []
+        for b, label in enumerate(("noise", "smooth")):
+            uhd_bad += [f"{label} {d}" for d in scalar_differences(
+                uhd[b], spots, spot_values(uhd_costs, b, spots))]
+        del uhd_costs
+        print(f"check golden (k.3) {UHD_W}x{UHD_H}, noise and smooth "
+              f"frames: {2 * len(spots)} (CU, mode) entries x SAD, SATD, "
+              f"minSadHad ({2 * n_bottom} in the {UHD_H % 128}-row partial "
+              f"bottom CTU row) vs the scalar oracle: "
+              f"{'bit-exact' if not uhd_bad else uhd_bad[:5]} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if uhd_bad or not n_bottom:
+            bad.append(f"(k.3) {len(uhd_bad)} entries differ from the "
+                       f"scalar oracle, first {uhd_bad[:3]}; {n_bottom} "
+                       f"in the bottom row")
+        # (k.1) frame 0 at the scalar oracle, compared below with the
+        # golden model and the card
+        t0 = time.perf_counter()
+        spots_hd = spot_cus(MAIN_W, MAIN_H, seed=16)
+        card_hd = spot_values(noise_full, 0, spots_hd)
+        hd_bad = scalar_differences(noise, spots_hd, card_hd)
+        oracle_s = time.perf_counter() - t0
+        golden = {name: {g: f.result() for g, f in futures.items()}
+                  for name, futures in pending.items()}
+    # after the pool's shutdown: every completion callback has run
+    golden_s = max(done) - t_pool
+    bad += golden_differences(
+        f"(k.1a) the main path's minSadHad, frame 0, {MAIN_W}x{MAIN_H}",
+        golden["noise"], {"min_sad_had": main_costs.min_sad_had[0]},
+        main_costs.valid[0])
+    bad += golden_differences(
+        f"(k.1b) full report, frame 0, {MAIN_W}x{MAIN_H}", golden["noise"],
+        {"sad": noise_full.sad[0], "satd": noise_full.satd[0],
+         "min_sad_had": noise_full.min_sad_had[0]}, noise_full.valid[0])
+    bad += golden_differences(
+        f"(k.2) smooth frame, {FILTER[0]}[{FILTER[1]}] on the card vs "
+        f"golden/filters_golden.py for the golden model, full report",
+        golden["smooth filtered"],
+        {"sad": smooth_full.sad[0], "satd": smooth_full.satd[0],
+         "min_sad_had": smooth_full.min_sad_had[0]}, smooth_full.valid[0])
+    hd_golden = [(golden["noise"][s[2]].sad[s[1], s[3], s[6]],
+                  golden["noise"][s[2]].satd[s[1], s[3], s[6]],
+                  golden["noise"][s[2]].min_sad_had[s[1], s[3], s[6]])
+                 for s in spots_hd]
+    hd_bad += [f"golden {d}" for d in scalar_differences(noise, spots_hd,
+                                                          hd_golden)]
+    print(f"check golden (k.1c) {MAIN_W}x{MAIN_H} frame 0: "
+          f"{len(spots_hd)} (CU, mode) entries x SAD, SATD, minSadHad of "
+          f"the card and of the golden model vs the scalar oracle: "
+          f"{'bit-exact' if not hd_bad else hd_bad[:5]} ({oracle_s:.1f} s)",
+          flush=True)
+    if hd_bad:
+        bad.append(f"(k.1c) {len(hd_bad)} entries differ from the scalar "
+                   f"oracle, first {hd_bad[:3]}")
+    if bad:
+        failures.append(f"golden (k): {bad}")
+    wall = time.perf_counter() - t_phase
+    print(f"golden model (k): 2 frames {MAIN_W}x{MAIN_H} in {golden_s:.1f} s "
+          f"wall ({golden_s / 2:.1f} s a frame) on {workers} spawned workers, "
+          f"one a CPU this process may run on (os.cpu_count() "
+          f"{os.cpu_count()}); phase (k) {wall:.1f} s ({card})",
+          flush=True)
+    return {"golden_s_per_frame": golden_s / 2, "workers": workers,
+            "phase_s": wall}
 
 
 def main() -> int:
@@ -1317,6 +1637,7 @@ def main() -> int:
             failures)
         latency_wall = phase_cli_latency(cli_args, tmp, card, failures)
         cli_wall = phase_cli_processes(cli_args, tmp, card, failures)
+        case_walls = phase_cli_process_cases(tmp, card, failures)
         # ---- 10. (g) frame CSV I/O, (h) energy, the roofline tool
         phase_frame_io(tmp, card, failures)
         energy = phase_energy(tmp, card, failures)
@@ -1326,6 +1647,9 @@ def main() -> int:
                 failures)
     # ---- 12. (j) the in-context profiler and the CPU filtering sweep
     incontext = phase_profiles(frames, per_kernel, card, failures)
+    # ---- 13. (k) the card's costs against the golden cost oracles, where
+    # no phase times the host
+    golden = phase_golden(frames, costs, card, failures)
     print(f"(f) beside the main path's {batch:.3f} ms per batch of "
           f"{MAIN_BATCH} ({card}):")
     for name, ms in mesh_ms.items():
@@ -1334,12 +1658,17 @@ def main() -> int:
         print(f"  single-frame latency {name}: {ms:.3f} ms ({card})")
     print(f"  CLI --LatencyMode: {latency_wall:.2f} s wall ({card})")
     print(f"  two-process CLI: {cli_wall:.2f} s wall ({card})")
+    for name, wall in case_walls.items():
+        print(f"  two-process CLI, {name}: {wall:.2f} s wall ({card})")
     for n, joules in energy.items():
         print(f"  (h) energy, {n} frame(s): {joules:.2f} J per frame "
               f"({card})", flush=True)
     for b, ms in incontext.items():
         print(f"  (j) in-context search, batch {b}: {ms:.4f} ms per frame "
               f"({card})", flush=True)
+    print(f"  (k) golden model {golden['golden_s_per_frame']:.1f} s a "
+          f"{MAIN_W}x{MAIN_H} frame on {golden['workers']} workers, phase "
+          f"{golden['phase_s']:.1f} s ({card})", flush=True)
     if failures:
         print("FAILED:", *failures, sep="\n  ", file=sys.stderr)
         return 1

@@ -279,6 +279,19 @@ def test_cli_multi_device_paths_need_a_card(flags, monkeypatch):
         tcli.main(["-f", "1", "-s", "128x128", "--Synthetic", *flags])
 
 
+def test_mesh_devices_one_card_stands_in_for_the_mesh(monkeypatch):
+    """A mesh on a machine with one card runs all its shards on that card;
+    with several cards it takes them in order; the CPU stands in n times."""
+    monkeypatch.delenv("VVC_MIP_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for n_cards, want in ((1, [0, 0, 0, 0]), (4, [0, 1, 2, 3])):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
+        assert tcli.mesh_devices(4) == [torch.device("cuda", i)
+                                        for i in want]
+    monkeypatch.setenv("VVC_MIP_PLATFORM", "cpu")
+    assert tcli.mesh_devices(3) == [torch.device("cpu")] * 3
+
+
 @pytest.mark.parametrize("flags", [["--MeshData", "2"], ["--MeshSpace", "2"],
                                    ["--NumProcesses", "2"]])
 def test_cli_latency_mode_rule(flags, on_cpu):

@@ -16,7 +16,8 @@ chunks of --BatchFrames frames -> decisions CSV export per frame, on a
 writer thread while the next chunk is searched.  Runs on the CUDA device
 ``cuda:<DeviceIndex>``; a mesh (--MeshData x --MeshSpace, the sharded
 engine) or --LatencyMode (the class-sharded engine) runs on every visible
-CUDA device, and --NumProcesses > 1 runs one process per host (gloo).
+CUDA device (a mesh's shards on streams of the one card when there is
+one), and --NumProcesses > 1 runs one process per host (gloo).
 With VVC_MIP_PLATFORM=cpu in the environment it runs on the CPU instead
 (the kernels' plain versions), the CPU standing in for as many devices as
 a mesh asks for.
@@ -172,6 +173,14 @@ def local_devices(n_cpu: int) -> list[torch.device]:
     return visible_devices()
 
 
+def mesh_devices(n: int) -> list[torch.device]:
+    """The devices of an ``n``-device mesh: ``local_devices(n)``, with one
+    card alone standing in for all ``n`` (its shards run as streams on it,
+    as in tools/scaling_report.py)."""
+    devices = local_devices(n)
+    return devices * n if len(devices) == 1 else devices
+
+
 def _searcher(cfg: EngineConfig, device: torch.device, n_pending: int):
     """(chunk size, enqueue, read) of the single-process engine the flags
     select: ``enqueue(frames, refs, pocs)`` starts the search of a chunk
@@ -207,7 +216,7 @@ def _searcher(cfg: EngineConfig, device: torch.device, n_pending: int):
         return 1, enqueue, read
     if cfg.mesh_data * cfg.mesh_space > 1:
         mesh = make_mesh(cfg.mesh_data, cfg.mesh_space,
-                         local_devices(cfg.mesh_data * cfg.mesh_space))
+                         mesh_devices(cfg.mesh_data * cfg.mesh_space))
         engine = ShardedMipCostEngine(cfg.width, cfg.height, mesh,
                                       max_performance=cfg.max_performance)
         # --BatchFrames rounded up to a multiple of the data axis
@@ -348,7 +357,7 @@ def _run_distributed(cfg: EngineConfig, synthetic: bool, resume: bool,
     if target_ctu is not None and not 0 <= target_ctu < n_ctu:
         raise ValueError(f"--TargetCTU {target_ctu} out of range "
                          f"(0..{n_ctu - 1})")
-    devices = local_devices(cfg.mesh_space)
+    devices = mesh_devices(cfg.mesh_space)
     dist.initialize(cfg.coordinator, cfg.num_processes, cfg.process_id)
     try:
         if devices[0].type == "cuda":
