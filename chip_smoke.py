@@ -10,11 +10,12 @@ together), prints each kernel's ptxas registers and spills (and fails if
 any cost kernel spills) and its static SASS instruction mix
 (utils/sass.py), holds every kernel against its plain PyTorch version on
 the card (bit-exact: every value is an integer; all 17 cost classes on
-noise and smooth frames at 1920x1080 and 608x192, both output regimes, a
-halo row, a distinct reference, saturated frames: all 1023, all 0, a
-0/1023 checkerboard, and outputs off 16-byte alignment), and drives each
-of the port's paths through the entry points a user calls, all at
-1920x1080:
+noise and smooth frames at 1920x1080, 608x192 and the reference's other
+sizes 416x240, 832x480 and 1280x720, both output regimes, a halo row, a
+distinct reference, saturated frames: all 1023, all 0, a 0/1023
+checkerboard, and outputs off 16-byte alignment), and drives each of the
+port's paths through the entry points a user calls, at 1920x1080 unless
+said otherwise:
 
 - the main path, MipCostEngine(1920, 1080,
   max_performance=True).compute_batch over 16 distinct uniform-random
@@ -71,6 +72,23 @@ of the port's paths through the entry points a user calls, all at
   (tools/profile_cpu_filtering.py, 1 to the host's CPU count workers,
   every band bit-equal to the whole frame) beside the card's filter ms
   per frame for the same four variants;
+- (l) the reference's other three sizes, 416x240, 832x480 and 1280x720
+  (partial right CTU columns of 32 and 64 samples, partial bottom rows
+  of 112, 96 and 80): (l.1) the 32 filter pairs on the card against the
+  golden filters, on a noise and a smooth frame; (l.2) the main path
+  over 16 distinct frames, frames 0-1 against the plain path and frame
+  0's minSadHad against the golden model; (l.3) the full report and
+  (l.4) the filtered full report (FILTER and a 1-D filter, the golden
+  model fed by the golden filters) against the golden model; the golden
+  model on a spawned pool while the card works, on valid CUs, masks
+  equal; (l.5) the CLI at each size (filtered, full report, two frames,
+  a target CTU; one frame a chunk at the two larger sizes) against the
+  card's costs, and at 416x240 its decisions CSVs against CSVs of the
+  golden model's costs through the port's decisions diff
+  (tools/diff_decisions.py) on in-frame rows; then each size's main path
+  timed beside its 17 kernels and their bounds (and at batch 64 at
+  416x240), and the port's bench at each size (headline, --filtered;
+  --batch 64 at 416x240) as child processes;
 - (k) the card's costs against the port's own golden cost oracles, on
   valid CUs (the golden model clips out-of-frame CU coordinates, the
   port replicates edges), in int64, each validity mask against the
@@ -132,6 +150,21 @@ SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_cost.cu"
 PRED_SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_pred.cu"
 FILTER = ("filterFrame_2d_int_quarterCtu", 2)  # the filtered-regime phases
 CLI_TARGET_CTU = 5
+# phase (l): the reference's other three frame sizes (constants.py
+# AVAILABLE_RES; common-test-condition classes D, C and E), the 1-D
+# filter held beside FILTER, the CLI's target CTU there, and the bench's
+# runs: the headline and --filtered at each size, and a larger batch at
+# the smallest, where one batch of 16 is about one 1080p frame of work
+REF_SIZES = ((416, 240), (832, 480), (1280, 720))
+REF_FILTERS = (FILTER, ("filterFrame_1d_float_5x5", 1))
+REF_TARGET_CTU = 3
+REF_LARGE_BATCH = 64
+REF_BENCH_RUNS = (
+    *(extra for w, h in REF_SIZES for extra in (
+        ["--resolution", f"{w}x{h}"],
+        ["--resolution", f"{w}x{h}", "--filtered"])),
+    ["--resolution", "{}x{}".format(*REF_SIZES[0]), "--batch",
+     str(REF_LARGE_BATCH)])
 # phase (f.3): the JAX package's two multi-process cases
 # (tests/test_multiprocess.py:178 and :80-81) at 256x192
 MULTI_PROCESS_CASES = {
@@ -148,6 +181,8 @@ INCONTEXT_RUNS = (["--loo"], ["--loo", "--batch", str(MAIN_BATCH)],
 # every cost launch, each redesigned for Hopper (one thread per CU for
 # 4x4; 8 threads per (CU, mode) for 64x64; one thread per (CU, mode,
 # 4-column strip) for the other 15 classes): ptxas must report no spills
+# a cost kernel's name in a profiler trace: its class's width and height
+COST_KERNEL = re.compile(r"mip_cost_sid\d_kernel<(\d+), ?(\d+)>")
 REDESIGNED = (
     "mip_cost_sid0_kernel<4,4>",
     *(f"mip_cost_sid1_kernel<{w},{h}>" for w, h in (
@@ -184,6 +219,92 @@ class Timer:
         end.record()
         torch.cuda.synchronize()
         self.ms = start.elapsed_time(end) / iters
+
+
+def device_times(fn, iters: int) -> dict[str, float]:
+    """{kernel: device ms per call of ``fn``} over ``iters`` calls after a
+    warm-up call, from torch.profiler's CUDA activity: the card's own
+    spans of every kernel, whoever launched it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def plain_costs(frames16: torch.Tensor, refs16: torch.Tensor, width: int,
+                height: int, n_out: int) -> list[torch.Tensor]:
+    """Every class's plain version over int16 [B, H, W] frames and
+    references on the card (the references' top rows as halo): [minSadHad]
+    (``n_out`` 1) or [SAD, SATD] (2), each int32 [B, nCTU, 97840]."""
+    from vvc_mip_gpu_tpu_torch.constants import num_ctus
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import PER_CTU, class_runs
+
+    dev = frames16.device
+    shape = (frames16.shape[0], num_ctus(width, height)[2], PER_CTU)
+    outs = [torch.full(shape, -1, dtype=torch.int32, device=dev)
+            for _ in range(n_out)]
+    halo = refs16[:, 0].contiguous()
+    for run in class_runs(width, height, dev):
+        run.kernel.plain(frames16, refs16, halo, True, run.plan, run.table,
+                         run.weights, outs)
+    return outs
+
+
+def class_times(frames16: torch.Tensor, width: int, height: int,
+                int_rate: float, failures, where: str = "") -> dict:
+    """Each class's kernel and plain-version times (CUDA events) over the
+    int16 [B, H, W] ``frames16`` on the card, beside its bound from the
+    op model (tools/roofline.py), each printed.  Returns {kernel: {"ms",
+    "plain_ms", "ops", "bytes", "classes": {class: ms}, "class_bounds":
+    {class: bound ms}}}."""
+    from vvc_mip_gpu_tpu_torch.constants import num_ctus
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import PER_CTU, class_runs
+    from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
+    from vvc_mip_gpu_tpu_torch.tools import roofline
+
+    batch = frames16.shape[0]
+    halo16 = frames16[:, 0].contiguous()
+    out = torch.empty((batch, num_ctus(width, height)[2], PER_CTU),
+                      dtype=torch.int32, device=frames16.device)
+    per_kernel = {k.name: {"ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0,
+                           "classes": {}, "class_bounds": {}}
+                  for k in KERNELS}
+    # the op model's work per class, in the runs' order
+    work = roofline.class_work(width, height, batch)
+    for run, cw in zip(class_runs(width, height, frames16.device), work):
+        s = run.plan.shape
+        args = (frames16, frames16, halo16, True, run.plan, run.table,
+                run.weights, [out])
+        ms = Timer(lambda: run.kernel(*args), 5).ms
+        plain_ms = Timer(lambda: run.kernel.plain(*args), 1).ms
+        if (cw["class"] != f"{s.width}x{s.height}"
+                or cw["n_cu"] != run.table.shape[0]
+                or cw["kernel"] != run.kernel.name):
+            failures.append(f"roofline class {cw} is not run {s}")
+        ops, nbytes = cw["ops"], cw["bytes"]
+        bound = roofline.bound(ops, nbytes, int_rate)[0]
+        agg = per_kernel[run.kernel.name]
+        agg["ms"] += ms
+        agg["plain_ms"] += plain_ms
+        agg["ops"] += ops
+        agg["bytes"] += nbytes
+        agg["classes"][f"{s.width}x{s.height}"] = round(ms, 4)
+        agg["class_bounds"][f"{s.width}x{s.height}"] = round(bound, 4)
+        print(f"class {s.width}x{s.height} {run.kernel.name}{where}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound:.4f} ms "
+              f"({ops / 1e9:.2f} G int ops, {nbytes / 1e6:.1f} MB), "
+              f"{ms / bound:.2f}x the bound, 1 launch per batch", flush=True)
+    return per_kernel
 
 
 def pred_inputs(frame16: torch.Tensor) -> dict:
@@ -267,47 +388,66 @@ def phase_pred(noise16, smooth16, int_rate: float, failures) -> dict:
     return row
 
 
-def phase_filters(batch: torch.Tensor, failures) -> None:
-    """(b) filter_frames on the card against the CPU and against the
-    port's NumPy golden filters (the oracle, on a thread per host CPU:
-    NumPy releases the GIL), all 8 variants x every KernelIdx, on a noise
-    and a smooth frame; then each variant's time on the batch (KernelIdx
-    2)."""
+def filter_pairs() -> list[tuple[str, int]]:
+    """The 8 filter variants x every KernelIdx: 32 pairs."""
     from vvc_mip_gpu_tpu_torch.constants import AVAILABLE_FILTERS
+
+    return [(ftype, kidx) for ftype in AVAILABLE_FILTERS
+            for kidx in range(3 if "5x5" in ftype else 5)]
+
+
+def filters_differ(host: np.ndarray, dev: torch.device,
+                   against_cpu: bool) -> list[str]:
+    """filter_frames on the card over the [N, H, W] ``host`` frames, every
+    pair of filter_pairs, against the port's NumPy golden filters (the
+    oracle, on a thread per host CPU: NumPy releases the GIL) and, with
+    ``against_cpu``, against filter_frames on the CPU.  Returns what
+    differs."""
     from vvc_mip_gpu_tpu_torch.golden.filters_golden import filter_frame
-    from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
     from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
     from vvc_mip_gpu_tpu_torch.tools.profile_cpu_filtering import host_cpus
 
-    rng = np.random.default_rng(3)
-    host = np.stack([rng.integers(0, 1024, (MAIN_H, MAIN_W)),
-                     synthetic_frames(1, MAIN_W, MAIN_H, seed=4)[0]])
     cpu = torch.from_numpy(host.astype(np.int32))
-    card = cpu.to(batch.device)
-    pairs = [(ftype, kidx) for ftype in AVAILABLE_FILTERS
-             for kidx in range(3 if "5x5" in ftype else 5)]
+    card = cpu.to(dev)
 
     def oracle_equal(pair, got: np.ndarray) -> bool:
         return all(np.array_equal(filter_frame(frame, *pair), out)
                    for frame, out in zip(host, got))
 
-    t0 = time.perf_counter()
     bad, futures = [], {}
     with ThreadPoolExecutor(host_cpus()) as pool:
-        for ftype, kidx in pairs:
+        for ftype, kidx in filter_pairs():
             got = filter_frames(card, ftype, kidx).cpu()
-            if not torch.equal(got, filter_frames(cpu, ftype, kidx)):
+            if against_cpu and not torch.equal(
+                    got, filter_frames(cpu, ftype, kidx)):
                 bad.append(f"{ftype}[{kidx}] vs the CPU")
             futures[f"{ftype}[{kidx}]"] = pool.submit(oracle_equal,
                                                       (ftype, kidx),
                                                       got.numpy())
         bad += [f"{name} vs the oracle" for name, f in futures.items()
                 if not f.result()]
+    return bad
+
+
+def phase_filters(batch: torch.Tensor, failures) -> None:
+    """(b) filter_frames on the card against the CPU and against the
+    port's NumPy golden filters, all 8 variants x every KernelIdx, on a
+    noise and a smooth frame; then each variant's time on the batch
+    (KernelIdx 2)."""
+    from vvc_mip_gpu_tpu_torch.constants import AVAILABLE_FILTERS
+    from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+
+    rng = np.random.default_rng(3)
+    host = np.stack([rng.integers(0, 1024, (MAIN_H, MAIN_W)),
+                     synthetic_frames(1, MAIN_W, MAIN_H, seed=4)[0]])
+    t0 = time.perf_counter()
+    bad = filters_differ(host, batch.device, True)
     if bad:
         failures.append(f"filters differ on the card: {bad}")
-    print(f"check filters {MAIN_W}x{MAIN_H}: {len(pairs)} variant/KernelIdx "
-          f"pairs x {len(host)} frames (noise, smooth), card vs CPU and vs "
-          f"the NumPy golden filters: "
+    print(f"check filters {MAIN_W}x{MAIN_H}: {len(filter_pairs())} "
+          f"variant/KernelIdx pairs x {len(host)} frames (noise, smooth), "
+          f"card vs CPU and vs the NumPy golden filters: "
           f"{'bit-exact' if not bad else 'DIFFER ' + str(bad)} "
           f"({time.perf_counter() - t0:.1f} s)")
     for ftype in AVAILABLE_FILTERS:
@@ -321,7 +461,7 @@ def phase_filtered_full(frames: torch.Tensor, failures) -> None:
     entry points: compute_batch(frames, filter_frames(frames, ...))."""
     from vvc_mip_gpu_tpu_torch.constants import num_ctus
     from vvc_mip_gpu_tpu_torch.models.cost_engine import (
-        PER_CTU, MipCostEngine, class_runs)
+        PER_CTU, MipCostEngine)
     from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
     from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
 
@@ -341,13 +481,9 @@ def phase_filtered_full(frames: torch.Tensor, failures) -> None:
            for t in (costs.sad, costs.satd, costs.min_sad_had)):
         failures.append("filtered path: cost tensors of the wrong shape")
         return
-    f16 = frames[:2].to(torch.int16).contiguous()
-    r16 = refs[:2].to(torch.int16).contiguous()
-    plain = [torch.full((2, *shape[1:]), -1, dtype=torch.int32,
-                        device=frames.device) for _ in range(2)]
-    for run in class_runs(MAIN_W, MAIN_H, frames.device):
-        run.kernel.plain(f16, r16, r16[:, 0].contiguous(), True, run.plan,
-                         run.table, run.weights, plain)
+    plain = plain_costs(frames[:2].to(torch.int16).contiguous(),
+                        refs[:2].to(torch.int16).contiguous(), MAIN_W,
+                        MAIN_H, 2)
     want = (plain[0], plain[1], torch.minimum(2 * plain[0], plain[1]))
     bad = [name for name, got, exp in zip(
         ("SAD", "SATD", "minSadHad"),
@@ -947,17 +1083,12 @@ def phase_uhd(dev: torch.device, failures) -> bool:
     in each.  Returns whether all held."""
     from vvc_mip_gpu_tpu_torch.constants import num_ctus
     from vvc_mip_gpu_tpu_torch.models.cost_engine import (
-        PER_CTU, FrameCosts, MipCostEngine, class_runs)
+        PER_CTU, FrameCosts, MipCostEngine)
 
     frames = torch.from_numpy(uhd_frames()).to(dev)
     n_ctu = num_ctus(UHD_W, UHD_H)[2]
-    shape = (2, n_ctu, PER_CTU)
     f16 = frames.to(torch.int16).contiguous()
-    plain = [torch.full(shape, -1, dtype=torch.int32, device=dev)
-             for _ in range(2)]
-    for run in class_runs(UHD_W, UHD_H, dev):
-        run.kernel.plain(f16, f16, f16[:, 0].contiguous(), True, run.plan,
-                         run.table, run.weights, plain)
+    plain = plain_costs(f16, f16, UHD_W, UHD_H, 2)
     want = FrameCosts(plain[0], plain[1],
                       torch.minimum(2 * plain[0], plain[1]), None)
     bad = []
@@ -980,12 +1111,45 @@ def phase_uhd(dev: torch.device, failures) -> bool:
     return not bad
 
 
+def bench_child(extra: list[str], failures) -> dict | None:
+    """The port's bench as a child process with the flags ``extra``, on
+    this card; its JSON line echoed on a line of its own.  The run fails
+    on a nonzero exit, an error, a value <= 0 or cost kernel launches not
+    in the proportion 1 / 7 / 9.  Returns its record, None if it failed."""
+    label = " ".join(extra) or "(headline)"
+    env = {k: v for k, v in os.environ.items() if k != "VVC_MIP_PLATFORM"}
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "vvc_mip_gpu_tpu_torch.bench", *extra],
+        cwd=Path(__file__).resolve().parent, env=env,
+        capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    for line in lines:
+        print(line)
+    rec = json.loads(lines[-1]) if lines else {}
+    launches = list(rec.get("launches", {}).values())
+    bad = []
+    if r.returncode or len(lines) != 1 or "error" in rec:
+        bad.append(f"rc {r.returncode}, {len(lines)} JSON lines, "
+                   f"error {rec.get('error')}: {r.stderr[-2000:]}")
+    elif not rec["value"] > 0:
+        bad.append(f"value {rec['value']}")
+    elif not (len(launches) == 3 and launches[0] > 0
+              and launches[1:] == [7 * launches[0], 9 * launches[0]]):
+        bad.append(f"launches {rec.get('launches')}")
+    print(f"bench {label}: rc {r.returncode}, {wall:.1f} s wall"
+          f"{'' if not bad else ', FAILED ' + str(bad)}", flush=True)
+    if bad:
+        failures.append(f"bench {label}: {bad}")
+        return None
+    return rec
+
+
 def phase_bench(main_ms: float, frames: torch.Tensor, msh: torch.Tensor,
                 uhd_ok: bool, card: str, failures) -> None:
     """(i.2) the port's bench as a child process in each mode of
-    BENCH_RUNS, on this card; each JSON line echoed on a line of its own.
-    A run fails on a nonzero exit, an error, a value <= 0 or cost kernel
-    launches not in the proportion 1 / 7 / 9; the 1080p headline fails
+    BENCH_RUNS, on this card (bench_child); the 1080p headline fails
     below HEADLINE_FLOOR x the main path's frames/s of this run.  First,
     what the headline's window adds to each batch of the main path (the
     salt XOR and the count of the costs), timed here on the main path's
@@ -1001,47 +1165,23 @@ def phase_bench(main_ms: float, frames: torch.Tensor, msh: torch.Tensor,
           f"{msh.numel() * 4 / 1e6:.1f} MB {count_ms:.3f} ms = "
           f"{main_ms + xor_ms + count_ms:.3f} ms ({card})", flush=True)
     del out
-    env = {k: v for k, v in os.environ.items() if k != "VVC_MIP_PLATFORM"}
     torch.cuda.empty_cache()
     for extra in BENCH_RUNS:
-        label = " ".join(extra) or "(headline)"
         if f"{UHD_W}x{UHD_H}" in extra and not uhd_ok:
-            failures.append(f"bench {label}: not run, the {UHD_W}x{UHD_H} "
-                            f"check failed")
+            failures.append(f"bench {' '.join(extra)}: not run, the "
+                            f"{UHD_W}x{UHD_H} check failed")
             continue
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "vvc_mip_gpu_tpu_torch.bench", *extra],
-            cwd=Path(__file__).resolve().parent, env=env,
-            capture_output=True, text=True, timeout=300)
-        wall = time.perf_counter() - t0
-        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
-        for line in lines:
-            print(line)
-        rec = json.loads(lines[-1]) if lines else {}
-        launches = list(rec.get("launches", {}).values())
-        bad = []
-        if r.returncode or len(lines) != 1 or "error" in rec:
-            bad.append(f"rc {r.returncode}, {len(lines)} JSON lines, "
-                       f"error {rec.get('error')}: {r.stderr[-2000:]}")
-        elif not rec["value"] > 0:
-            bad.append(f"value {rec['value']}")
-        elif not (len(launches) == 3 and launches[0] > 0
-                  and launches[1:] == [7 * launches[0], 9 * launches[0]]):
-            bad.append(f"launches {rec.get('launches')}")
-        if not extra and not bad:
+        rec = bench_child(extra, failures)
+        if not extra and rec:
             floor = HEADLINE_FLOOR * MAIN_BATCH * 1e3 / main_ms
             print(f"bench headline {rec['value']} frames/s "
                   f"({MAIN_BATCH * 1e3 / rec['value']:.3f} ms a batch on the "
                   f"host's clock, {rec['device_ms_per_batch']} on the card's) "
                   f"against {HEADLINE_FLOOR} x {MAIN_BATCH} / {main_ms:.3f} "
-                  f"ms = {floor:.1f} frames/s ({card})")
+                  f"ms = {floor:.1f} frames/s ({card})", flush=True)
             if rec["value"] < floor:
-                bad.append(f"{rec['value']} frames/s below {floor:.1f}")
-        print(f"bench {label}: rc {r.returncode}, {wall:.1f} s wall"
-              f"{'' if not bad else ', FAILED ' + str(bad)}", flush=True)
-        if bad:
-            failures.append(f"bench {label}: {bad}")
+                failures.append(f"bench (headline): {rec['value']} frames/s "
+                                f"below {floor:.1f}")
 
 
 def phase_profiles(frames: torch.Tensor, per_kernel: dict, card: str,
@@ -1256,6 +1396,302 @@ def spot_values(costs, b: int, spots: list) -> list:
     fields = [t[b, ctu, j].cpu().tolist()
               for t in (costs.sad, costs.satd, costs.min_sad_had)]
     return list(zip(*fields))
+
+
+def reference_card(width: int, height: int, frames: np.ndarray,
+                   smooth: np.ndarray, dev: torch.device) -> tuple:
+    """(l.1)-(l.4) on the card at one of REF_SIZES: the 32 filter pairs
+    against the golden filters on frame 0 and the smooth frame; the main
+    path, MipCostEngine(max_performance=True).compute_batch over the 16
+    distinct ``frames``, frames 0-1 whole against the plain path; the
+    full report of frame 0; the filtered full report of ``smooth`` for
+    each of REF_FILTERS, filtered on the card.  Each path's launches held
+    to 1 / 7 / 9.  Returns ({path: FrameCosts} for the golden model's
+    comparison, what failed)."""
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+
+    size = f"{width}x{height}"
+    t0 = time.perf_counter()
+    bad = [f"(l.1) {d}" for d in filters_differ(
+        np.stack([frames[0], smooth]), dev, False)]
+    print(f"check (l.1) {size} filters: {len(filter_pairs())} "
+          f"variant/KernelIdx pairs x 2 frames (noise, smooth), card vs "
+          f"the NumPy golden filters: {'bit-exact' if not bad else bad} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    card = torch.from_numpy(frames).to(dev)
+    main, launches = count_launches(lambda: MipCostEngine(
+        width, height, max_performance=True).compute_batch(card))
+    f16 = card[:2].to(torch.int16).contiguous()
+    same = torch.equal(main.min_sad_had[:2],
+                       plain_costs(f16, f16, width, height, 1)[0])
+    print(f"check (l.2) {size} main path, {len(frames)} frames: launches "
+          f"{launches}; minSadHad of frames 0-1 vs the plain path: "
+          f"{'bit-exact' if same else 'DIFFERS'}", flush=True)
+    if not same:
+        bad.append(f"(l.2) {size} main path differs from the plain path")
+    costs, counts = {"main": main}, {"main": launches}
+    runs = {"full": (card[:1], None)}
+    smooth_card = torch.from_numpy(smooth.astype(np.int32))[None].to(dev)
+    for pair in REF_FILTERS:
+        runs[pair] = (smooth_card, filter_frames(smooth_card, *pair))
+    for name, (fr, ref) in runs.items():
+        costs[name], counts[name] = count_launches(
+            lambda: MipCostEngine(width, height).compute_batch(fr, ref))
+    bad += [f"{size} {name} launches {n}, want [1, 7, 9]"
+            for name, n in counts.items() if n != [1, 7, 9]]
+    print(f"(l) {size} launches: " + ", ".join(
+        f"{name} {n}" for name, n in counts.items()), flush=True)
+    return costs, bad
+
+
+def reference_cli(tmp: str, card: str) -> tuple[dict, list[str]]:
+    """(l.5) the port's CLI in-process at each of REF_SIZES, filtered
+    (FILTER), full report, 2 frames, a target CTU: its decisions and
+    target-CTU CSVs against the C writer's export of the card's costs of
+    the same frames, byte for byte.  At the smallest size one chunk (the
+    default --BatchFrames); at the others one frame a chunk, through both
+    slots of the readback ring and the writer thread.  The smallest size's
+    files stay for the golden comparison.  Returns ({size: (prefix, wall
+    s)}, what failed)."""
+    from vvc_mip_gpu_tpu_torch.io.export import (
+        export_decisions_csv, export_target_ctu_csv)
+    from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+
+    out, bad = {}, []
+    for width, height in REF_SIZES:
+        size = f"{width}x{height}"
+        prefix = str(Path(tmp) / f"ref{size}_")
+        chunks = 1 if (width, height) == REF_SIZES[0] else 2
+        args = ["-f", "2", "-s", size, "--Synthetic", "--FullDistortion",
+                "--FilterType", FILTER[0], "--KernelIdx", str(FILTER[1]),
+                "--TargetCTU", str(REF_TARGET_CTU),
+                *([] if chunks == 1 else ["--BatchFrames", "1"])]
+        (rc, wall, _), launches = count_launches(lambda: cli_in_process(
+            args + ["-l", prefix], Path(tmp) / "ref_stdout.txt"))
+        frames = torch.from_numpy(synthetic_frames(
+            2, width, height).astype(np.int32)).cuda()
+        costs = MipCostEngine(width, height).compute_batch(
+            frames, filter_frames(frames, *FILTER))
+        sad, satd, msh = (t.cpu().numpy() for t in (
+            costs.sad, costs.satd, costs.min_sad_had))
+        again = Path(tmp) / "ref_again.csv"
+        differ = []
+        for poc in (0, 1):
+            export_decisions_csv(again, msh[poc], width, sad=sad[poc],
+                                 satd=satd[poc], poc=poc)
+            name = f"mip_decisions_poc{poc}.csv"
+            if not filecmp.cmp(again, prefix + name, shallow=False):
+                differ.append(name)
+        export_target_ctu_csv(
+            again, list(msh[:, REF_TARGET_CTU]), width, REF_TARGET_CTU,
+            sad_per_frame=list(sad[:, REF_TARGET_CTU]),
+            satd_per_frame=list(satd[:, REF_TARGET_CTU]), pocs=[0, 1])
+        name = f"target_ctu{REF_TARGET_CTU}.csv"
+        if not filecmp.cmp(again, prefix + name, shallow=False):
+            differ.append(name)
+        again.unlink()
+        if (width, height) != REF_SIZES[0]:
+            for path in Path(tmp).glob(f"ref{size}_*"):
+                path.unlink()
+        want = [chunks, 7 * chunks, 9 * chunks]
+        if rc or launches != want or differ:
+            bad.append(f"(l.5) CLI {size}: rc {rc}, launches {launches} "
+                       f"(want {want}), files differing from the export of "
+                       f"the card's costs {differ}")
+        print(f"check (l.5) CLI {' '.join(args)}: rc {rc}, {wall:.2f} s "
+              f"wall, launches {launches}; decisions and target CSVs equal "
+              f"the export of the card's costs byte for byte: {not differ} "
+              f"({card})", flush=True)
+        out[size] = (prefix, wall)
+    return out, bad
+
+
+def golden_csv_diff(prefix: str, golden: list, tmp: str) -> list[str]:
+    """(l.5) the smallest size's CLI decisions CSVs against CSVs of the
+    golden model's costs (``golden``: one {group: GroupCosts} a frame)
+    written by the port's C writer, through the port's decisions diff on
+    the in-frame rows; the diff's in-frame rows must be the engine's
+    validity mask.  Returns what failed."""
+    from vvc_mip_gpu_tpu_torch.golden import reference_model as gm
+    from vvc_mip_gpu_tpu_torch.io.export import export_decisions_csv
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import _validity_mask
+    from vvc_mip_gpu_tpu_torch.tools import diff_decisions
+
+    width, height = REF_SIZES[0]
+    bad = []
+    for poc, costs in enumerate(golden):
+        path = Path(tmp) / f"golden_poc{poc}.csv"
+        export_decisions_csv(
+            path, gm.flatten_strided(costs, "min_sad_had"), width,
+            sad=gm.flatten_strided(costs, "sad"),
+            satd=gm.flatten_strided(costs, "satd"), poc=poc)
+        cli_csv = f"{prefix}mip_decisions_poc{poc}.csv"
+        table = diff_decisions.read(cli_csv)
+        in_frame = ((table["X"] + table["W"] <= width)
+                    & (table["Y"] + table["H"] <= height))
+        mask_ok = np.array_equal(in_frame,
+                                 _validity_mask(width, height).ravel())
+        print(f"diff_decisions {cli_csv} (the CLI's) vs {path.name} (the "
+              f"golden model's) --ignore-invalid {width}x{height}:",
+              flush=True)
+        rc = diff_decisions.main([cli_csv, str(path), "--ignore-invalid",
+                                  f"{width}x{height}"])
+        print(f"check (l.5) golden CSV, POC {poc}: diff rc {rc}; in-frame "
+              f"rows {int(in_frame.sum())} of {len(in_frame)}, the engine's "
+              f"validity mask: {mask_ok}", flush=True)
+        if rc or not mask_ok:
+            bad.append(f"(l.5) golden CSV POC {poc}: diff rc {rc}, mask "
+                       f"{mask_ok}")
+    return bad
+
+
+def phase_reference(tmp: str, dev: torch.device, card: str,
+                    int_rate: float, failures) -> dict:
+    """(l) the reference's other three frame sizes, REF_SIZES, on the
+    card.  The golden model (golden/reference_model.py) on a spawned pool
+    while the card runs reference_card and reference_cli: frame 0 of each
+    size's batch, its smooth frame under each of REF_FILTERS (fed by
+    golden/filters_golden.py) and the CLI's two filtered frames at the
+    smallest size; each against the card on valid CUs, masks equal, and
+    the CLI's CSVs against the golden model's through the port's
+    decisions diff (golden_csv_diff).  Then, with the pool gone, each
+    size's main path timed beside its 17 kernels and their bounds (also
+    at batch REF_LARGE_BATCH at the smallest), and the port's bench in
+    REF_BENCH_RUNS.  Returns the timings."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from vvc_mip_gpu_tpu_torch.constants import num_ctus
+    from vvc_mip_gpu_tpu_torch.golden.filters_golden import filter_frame
+    from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
+    from vvc_mip_gpu_tpu_torch.tools.profile_cpu_filtering import host_cpus
+
+    t_phase = time.perf_counter()
+    inputs = {(w, h): (
+        np.random.default_rng(40 + i).integers(
+            0, 1024, (MAIN_BATCH, h, w), dtype=np.int32),
+        synthetic_frames(1, w, h, seed=50 + i)[0].astype(np.int64))
+        for i, (w, h) in enumerate(REF_SIZES)}
+    cli_frames = synthetic_frames(2, *REF_SIZES[0]).astype(np.int64)
+    bad, done = [], []
+    workers = host_cpus()
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        t_pool = time.perf_counter()
+        pending = {}
+        for (w, h), (frames, smooth) in inputs.items():
+            noise = frames[0].astype(np.int64)
+            pending[w, h, "noise"] = golden_futures(pool, noise, noise, done)
+            for pair in REF_FILTERS:
+                pending[w, h, pair] = golden_futures(
+                    pool, smooth, filter_frame(smooth, *pair), done)
+        for poc, frame in enumerate(cli_frames):
+            pending["cli", poc] = golden_futures(
+                pool, frame, filter_frame(frame, *FILTER), done)
+        # the card meanwhile
+        card_costs = {}
+        for (w, h), (frames, smooth) in inputs.items():
+            card_costs[w, h], more = reference_card(w, h, frames, smooth,
+                                                    dev)
+            bad += more
+        cli, more = reference_cli(tmp, card)
+        bad += more
+        golden = {key: {g: f.result() for g, f in futures.items()}
+                  for key, futures in pending.items()}
+    golden_s = max(done) - t_pool
+    for (w, h), costs in card_costs.items():
+        full = ("sad", "satd", "min_sad_had")
+        bad += golden_differences(
+            f"(l.2) {w}x{h} the main path's minSadHad, frame 0",
+            golden[w, h, "noise"],
+            {"min_sad_had": costs["main"].min_sad_had[0]},
+            costs["main"].valid[0])
+        bad += golden_differences(
+            f"(l.3) {w}x{h} full report, frame 0", golden[w, h, "noise"],
+            {f: getattr(costs["full"], f)[0] for f in full},
+            costs["full"].valid[0])
+        for pair in REF_FILTERS:
+            bad += golden_differences(
+                f"(l.4) {w}x{h} smooth frame, {pair[0]}[{pair[1]}] on the "
+                f"card vs golden/filters_golden.py for the golden model, "
+                f"full report", golden[w, h, pair],
+                {f: getattr(costs[pair], f)[0] for f in full},
+                costs[pair].valid[0])
+    del card_costs
+    small = "{}x{}".format(*REF_SIZES[0])
+    bad += golden_csv_diff(cli[small][0], [golden["cli", 0],
+                                           golden["cli", 1]], tmp)
+    del golden
+    n_ctu = (sum(num_ctus(w, h)[2] for w, h in REF_SIZES)
+             * (1 + len(REF_FILTERS)) + 2 * num_ctus(*REF_SIZES[0])[2])
+    print(f"golden model (l): {len(pending)} frames, {n_ctu} CTUs, in "
+          f"{golden_s:.1f} s wall on {workers} spawned workers ({card})",
+          flush=True)
+
+    # timings, the host quiet: the main path back to back (CUDA events),
+    # the card's busy time in it (torch.profiler) and its 17 kernels one by
+    # one; 1920x1080 beside them
+    times = {}
+    sizes = [(w, h, MAIN_BATCH) for w, h in REF_SIZES]
+    sizes += [(*REF_SIZES[0], REF_LARGE_BATCH), (MAIN_W, MAIN_H, MAIN_BATCH)]
+    for w, h, b in sizes:
+        frames = torch.from_numpy(np.random.default_rng(60).integers(
+            0, 1024, (b, h, w), dtype=np.int32)).to(dev)
+        engine = MipCostEngine(w, h, max_performance=True)
+        e2e = Timer(lambda: engine.compute_batch(frames), TIMED_ITERS, 2).ms
+        on_card = device_times(lambda: engine.compute_batch(frames),
+                               TIMED_ITERS)
+        in_batch = {f"{m[1]}x{m[2]}": ms for name, ms in on_card.items()
+                    if (m := COST_KERNEL.search(name))}
+        if len(in_batch) != 17:
+            bad.append(f"{w}x{h} batch {b}: the profiler saw {len(in_batch)} "
+                       f"cost kernels, want 17: {sorted(on_card)}")
+        busy = sum(on_card.values())
+        per_kernel = class_times(frames.to(torch.int16).contiguous(), w, h,
+                                 int_rate, bad, f" at {w}x{h} batch {b}")
+        alone = {c: ms for agg in per_kernel.values()
+                 for c, ms in agg["classes"].items()}
+        bounds = {c: ms for agg in per_kernel.values()
+                  for c, ms in agg["class_bounds"].items()}
+        times[w, h, b] = {
+            "e2e_ms": e2e, "busy_ms": busy,
+            "cost_kernels_ms": sum(in_batch.values()),
+            "kernels_ms": sum(alone.values()),
+            "bound_ms": sum(bounds.values())}
+        t = times[w, h, b]
+        print(f"(l) {w}x{h} batch {b}, each class in the batch (profiler) / "
+              f"alone (CUDA events) / bound, ms: " + ", ".join(
+                  f"{c} {in_batch.get(c, float('nan')):.4f} / {alone[c]:.4f} "
+                  f"/ {bounds[c]:.4f}" for c in alone), flush=True)
+        print(f"(l) {w}x{h} main path: {e2e:.4f} ms per batch of {b} "
+              f"({b * 1e3 / e2e:.1f} frames/s); on the card (torch.profiler) "
+              f"{busy:.4f} ms busy, the 17 cost kernels "
+              f"{t['cost_kernels_ms']:.4f} ms (bound {t['bound_ms']:.4f} ms); "
+              f"host share {e2e - busy:.4f} ms ({(e2e - busy) / e2e:.1%} of "
+              f"the batch idle); the 17 kernels one by one "
+              f"{t['kernels_ms']:.4f} ms ({card})", flush=True)
+    torch.cuda.empty_cache()
+    for extra in REF_BENCH_RUNS:
+        rec = bench_child(extra, bad)
+        if rec and "--filtered" not in extra:
+            w, h = (int(v) for v in extra[1].split("x"))
+            b = int(extra[3]) if "--batch" in extra else MAIN_BATCH
+            host_ms = b * 1e3 / rec["value"]
+            kernels = times[w, h, b]["cost_kernels_ms"]
+            print(f"bench {' '.join(extra)}: {host_ms:.4f} ms a batch of {b} "
+                  f"on the host's clock, {rec['device_ms_per_batch']} on "
+                  f"the card's; minus the 17 cost kernels in the batch "
+                  f"({kernels:.4f} ms): {host_ms - kernels:.4f} ms ({card})",
+                  flush=True)
+    if bad:
+        failures.append(f"reference sizes (l): {bad}")
+    wall = time.perf_counter() - t_phase
+    print(f"phase (l): {wall:.1f} s ({card})", flush=True)
+    return {"times": times, "golden_s": golden_s, "phase_s": wall}
 
 
 def phase_golden(frames: torch.Tensor, main_costs, card: str,
@@ -1508,7 +1944,7 @@ def main() -> int:
             synthetic_frames(1, width, height, seed=2)[0]]).astype(
                 np.int32)).to(dev)
 
-    for width, height in ((MAIN_W, MAIN_H), (608, 192)):
+    for width, height in ((MAIN_W, MAIN_H), (608, 192), *REF_SIZES):
         fr = frames_for(width, height)
         for mp in (True, False):
             check(f"{width}x{height} mp={int(mp)}", fr, fr, fr[:, 0], True,
@@ -1559,13 +1995,7 @@ def main() -> int:
         failures.append(f"main path output {tuple(msh.shape)} {msh.dtype}")
     # the first two frames against the plain versions
     f16 = frames[:2].to(torch.int16).contiguous()
-    plain = torch.full((2, n_ctu, PER_CTU), -1, dtype=torch.int32,
-                       device=dev)
-    runs = class_runs(MAIN_W, MAIN_H, dev)
-    for run in runs:
-        run.kernel.plain(f16, f16, f16[:, 0].contiguous(), True, run.plan,
-                         run.table, run.weights, [plain])
-    if not torch.equal(msh[:2], plain):
+    if not torch.equal(msh[:2], plain_costs(f16, f16, MAIN_W, MAIN_H, 1)[0]):
         failures.append("main path minSadHad differs from the plain path")
     if failures:
         print("FAILED:", *failures, sep="\n  ", file=sys.stderr)
@@ -1580,43 +2010,13 @@ def main() -> int:
 
     # per-class kernel and plain-version times at the main path's shapes
     f16 = frames.to(torch.int16).contiguous()
-    halo16 = f16[:, 0].contiguous()
-    out = torch.empty((MAIN_BATCH, n_ctu, PER_CTU), dtype=torch.int32,
-                      device=dev)
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     int_rate = roofline.int32_rate(props.multi_processor_count, clock_mhz)
     print(f"bound rates: int32 {int_rate / 1e12:.2f} Tops/s "
           f"({roofline.INT32_OPS_PER_CLK_PER_SM}/clk/SM x "
           f"{props.multi_processor_count} SMs x {clock_mhz:.0f} MHz), "
           f"memory {roofline.HBM_BYTES_PER_S / 1e12:.2f} TB/s")
-    per_kernel = {k.name: {"ms": 0.0, "plain_ms": 0.0, "ops": 0, "bytes": 0,
-                           "classes": {}, "class_bounds": {}}
-                  for k in KERNELS}
-    # the op model's work per class (tools/roofline.py), the runs' order
-    work = roofline.class_work(MAIN_W, MAIN_H, MAIN_BATCH)
-    for run, cw in zip(runs, work):
-        s = run.plan.shape
-        args = (f16, f16, halo16, True, run.plan, run.table, run.weights,
-                [out])
-        ms = Timer(lambda: run.kernel(*args), 5).ms
-        plain_ms = Timer(lambda: run.kernel.plain(*args), 1).ms
-        if (cw["class"] != f"{s.width}x{s.height}"
-                or cw["n_cu"] != run.table.shape[0]
-                or cw["kernel"] != run.kernel.name):
-            failures.append(f"roofline class {cw} is not run {s}")
-        ops, nbytes = cw["ops"], cw["bytes"]
-        bound = roofline.bound(ops, nbytes, int_rate)[0]
-        agg = per_kernel[run.kernel.name]
-        agg["ms"] += ms
-        agg["plain_ms"] += plain_ms
-        agg["ops"] += ops
-        agg["bytes"] += nbytes
-        agg["classes"][f"{s.width}x{s.height}"] = round(ms, 4)
-        agg["class_bounds"][f"{s.width}x{s.height}"] = round(bound, 4)
-        print(f"class {s.width}x{s.height} {run.kernel.name}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound:.4f} ms "
-              f"({ops / 1e9:.2f} G int ops, {nbytes / 1e6:.1f} MB), "
-              f"{ms / bound:.2f}x the bound, 1 launch per batch", flush=True)
+    per_kernel = class_times(f16, MAIN_W, MAIN_H, int_rate, failures)
 
     # ---- 4-8. the prediction kernel, the filters, the filtered full
     # report, the inspect readback and the CLI (its files kept for (f))
@@ -1647,7 +2047,10 @@ def main() -> int:
                 failures)
     # ---- 12. (j) the in-context profiler and the CPU filtering sweep
     incontext = phase_profiles(frames, per_kernel, card, failures)
-    # ---- 13. (k) the card's costs against the golden cost oracles, where
+    # ---- 13. (l) the reference's other three frame sizes
+    with tempfile.TemporaryDirectory() as tmp:
+        reference = phase_reference(tmp, dev, card, int_rate, failures)
+    # ---- 14. (k) the card's costs against the golden cost oracles, where
     # no phase times the host
     golden = phase_golden(frames, costs, card, failures)
     print(f"(f) beside the main path's {batch:.3f} ms per batch of "
@@ -1666,6 +2069,14 @@ def main() -> int:
     for b, ms in incontext.items():
         print(f"  (j) in-context search, batch {b}: {ms:.4f} ms per frame "
               f"({card})", flush=True)
+    for (w, h, b), t in reference["times"].items():
+        print(f"  (l) {w}x{h} main path, batch {b}: {t['e2e_ms']:.4f} ms, "
+              f"{b * 1e3 / t['e2e_ms']:.1f} frames/s; the card busy "
+              f"{t['busy_ms']:.4f} ms, its 17 cost kernels "
+              f"{t['cost_kernels_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; "
+              f"idle {1 - t['busy_ms'] / t['e2e_ms']:.1%} ({card})")
+    print(f"  (l) golden model {reference['golden_s']:.1f} s, phase "
+          f"{reference['phase_s']:.1f} s ({card})")
     print(f"  (k) golden model {golden['golden_s_per_frame']:.1f} s a "
           f"{MAIN_W}x{MAIN_H} frame on {golden['workers']} workers, phase "
           f"{golden['phase_s']:.1f} s ({card})", flush=True)

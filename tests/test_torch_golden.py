@@ -3,7 +3,8 @@ golden/scalar_oracle.py) on the CPU: each equal to the JAX package's copy
 (whole arrays, tolerance 0), the two equal to each other on sampled CUs of
 every group, and the port's plain path equal to the port's golden model
 on every valid CU at 160x184, whose bottom CTU row is 56 rows tall as at
-1920x1080.  NumPy only on the JAX side: no JAX compile."""
+1920x1080 (whole 416x240 frames: test_torch_golden_416x240.py).  NumPy
+only on the JAX side: no JAX compile."""
 
 import ast
 from pathlib import Path
@@ -142,22 +143,30 @@ def test_plain_path_equals_golden_160x184(port_costs, regime,
     and its validity mask against the golden model's per-group masks (the
     port fills out-of-frame CUs from edge replication, the golden model
     from clipped coordinates, so only valid CUs compare)."""
-    exp = port_costs[regime]
     engine = MipCostEngine(W, H, max_performance=max_performance,
                            device="cpu")
     got = engine(FRAME, None if regime == "original" else REF)
+    _assert_equal_on_valid_cus(got, port_costs[regime],
+                               ("min_sad_had",) if max_performance
+                               else FIELDS)
+    if max_performance:
+        assert got.sad is None and got.satd is None
+
+
+def _assert_equal_on_valid_cus(got, exp, fields):
+    """``got`` (one frame's FrameCosts) equals the golden model's ``exp``
+    on every valid CU, and its validity mask the golden model's
+    per-group masks."""
     valid = got.valid.numpy()
     np.testing.assert_array_equal(valid, np.concatenate(
         [np.repeat(exp[g.index].valid, g.total_modes, axis=1)
          for g in GROUPS], axis=1))
     assert 0 < valid.sum() < valid.size
-    for field in ("min_sad_had",) if max_performance else FIELDS:
+    for field in fields:
         a = getattr(got, field).numpy().astype(np.int64)
         mism = (a != gm.flatten_strided(exp, field)) & valid
         assert not mism.any(), (
             f"{field}: {mism.sum()} mismatches at {np.argwhere(mism)[:5]}")
-    if max_performance:
-        assert got.sad is None and got.satd is None
 
 
 def test_golden_imports_only_constants_and_weights_of_the_port():

@@ -1,5 +1,6 @@
-/* Host I/O of the PyTorch/CUDA port: the frame CSV reader and writer and
- * the decisions-CSV writer, in plain C with a C ABI (no Python headers).
+/* Host I/O of the PyTorch/CUDA port: the frame CSV reader and writer, the
+ * decisions-CSV writer and a reader of such tables, in plain C with a C
+ * ABI (no Python headers).
  *
  * io/native.py builds this file with the host C compiler into a shared
  * library and binds it with ctypes, which releases the interpreter lock
@@ -358,8 +359,9 @@ static void parse_line(Parse *st, const char *s, int64_t n, int more)
 #undef CH
 }
 
-int io_read_samples_csv(const char *path, int64_t width, int64_t rows,
-                        int64_t skip_rows, uint16_t *out, int64_t *stats)
+/* Map the file at path for reading: *data (NULL when it is empty) and
+ * *size; unmap with unmap_file.  0, or -1 with errno set. */
+static int map_file(const char *path, const char **data, size_t *size)
 {
     int fd = open(path, O_RDONLY);
     if (fd < 0)
@@ -371,20 +373,36 @@ int io_read_samples_csv(const char *path, int64_t width, int64_t rows,
         errno = e;
         return -1;
     }
-    size_t size = (size_t)sb.st_size;
-    const char *data = NULL;
-    if (size) {
-        void *m = mmap(NULL, size, PROT_READ, MAP_PRIVATE, fd, 0);
+    *size = (size_t)sb.st_size;
+    *data = NULL;
+    if (*size) {
+        void *m = mmap(NULL, *size, PROT_READ, MAP_PRIVATE, fd, 0);
         if (m == MAP_FAILED) {
             int e = errno;
             close(fd);
             errno = e;
             return -1;
         }
-        data = m;
-        madvise(m, size, MADV_SEQUENTIAL);
+        *data = m;
+        madvise(m, *size, MADV_SEQUENTIAL);
     }
     close(fd);
+    return 0;
+}
+
+static void unmap_file(const char *data, size_t size)
+{
+    if (size)
+        munmap((void *)data, size);
+}
+
+int io_read_samples_csv(const char *path, int64_t width, int64_t rows,
+                        int64_t skip_rows, uint16_t *out, int64_t *stats)
+{
+    const char *data;
+    size_t size;
+    if (map_file(path, &data, &size))
+        return -1;
 
     const char *p = data, *end = data + size;
     for (int64_t r = 0; r < skip_rows && p < end; r++) {
@@ -412,11 +430,107 @@ int io_read_samples_csv(const char *path, int64_t width, int64_t rows,
         parse_line(&st, p, stop - p, more);
         p = next;
     }
-    if (size)
-        munmap((void *)data, size);
+    unmap_file(data, size);
     stats[0] = lines;
     stats[1] = st.count;
     stats[2] = commas_ok;
     stats[3] = st.in_range;
+    return 0;
+}
+
+/* ------------------------------------------------------------------ *
+ * io_read_table_csv: the data rows of a CSV table of n_cols columns   *
+ * (a decisions log: every column an integer but its text columns),    *
+ * after its header line.  Blank lines are skipped.                    *
+ *                                                                     *
+ * is_text[n_cols]: 1 for a text column.  ints: n_cols * rows int64,   *
+ * column c at ints + c * rows (text columns' slots are left as they   *
+ * are); text: n_text * rows * text_stride bytes, the t-th text column *
+ * at text + t * rows * text_stride, each field NUL-padded.  With ints *
+ * NULL only the data rows are counted.  An integer field is an        *
+ * optional sign and 1 to 18 digits, nothing else; a text field holds  *
+ * at most text_stride - 1 bytes.                                      *
+ *                                                                     *
+ * stats[4] = {data rows read, the first bad row (0-based data row) or *
+ * -1, its column (-1 for a wrong field count), what was wrong: 0 none,*
+ * 1 a field count other than n_cols, 2 not an integer, 3 text too    *
+ * long, 4 more than `rows` rows}.  The caller raises from these.      *
+ * ------------------------------------------------------------------ */
+int io_read_table_csv(const char *path, int64_t n_cols,
+                      const uint8_t *is_text, int64_t rows, int64_t *ints,
+                      char *text, int64_t text_stride, int64_t *stats)
+{
+    const char *data;
+    size_t size;
+    if (map_file(path, &data, &size))
+        return -1;
+    const char *p = data, *end = data + size;
+    const char *nl = p < end ? memchr(p, '\n', (size_t)(end - p)) : NULL;
+    p = nl ? nl + 1 : end;    /* the header */
+    int64_t row = 0, bad_col = -1, what = 0;
+    while (p < end && !what) {
+        nl = memchr(p, '\n', (size_t)(end - p));
+        const char *stop = nl ? nl : end;
+        const char *next = nl ? nl + 1 : end;
+        while (stop > p && stop[-1] == '\r')
+            stop--;
+        if (stop == p) {      /* a blank line */
+            p = next;
+            continue;
+        }
+        if (!ints) {
+            row++;
+            p = next;
+            continue;
+        }
+        if (row == rows) {
+            what = 4;
+            break;
+        }
+        const char *f = p;
+        int64_t t = 0;
+        for (int64_t c = 0; c < n_cols; c++) {
+            const char *comma = memchr(f, ',', (size_t)(stop - f));
+            const char *fe = comma ? comma : stop;
+            if ((c + 1 < n_cols) != (comma != NULL)) {
+                what = 1;     /* too few or too many fields */
+                break;
+            }
+            if (is_text[c]) {
+                if (fe - f >= text_stride) {
+                    bad_col = c, what = 3;
+                    break;
+                }
+                char *dst = text + (t++ * rows + row) * text_stride;
+                memset(dst, 0, (size_t)text_stride);
+                memcpy(dst, f, (size_t)(fe - f));
+            } else {
+                const char *q = f;
+                int neg = q < fe && *q == '-';
+                if (q < fe && (*q == '-' || *q == '+'))
+                    q++;
+                int64_t v = 0;
+                if (q == fe || fe - q > 18)
+                    bad_col = c, what = 2;
+                for (; q < fe && !what; q++) {
+                    if (*q < '0' || *q > '9')
+                        bad_col = c, what = 2;
+                    v = v * 10 + (*q - '0');
+                }
+                if (what)
+                    break;
+                ints[c * rows + row] = neg ? -v : v;
+            }
+            f = fe + 1;
+        }
+        if (!what)
+            row++;
+        p = next;
+    }
+    unmap_file(data, size);
+    stats[0] = row;
+    stats[1] = what ? row : -1;
+    stats[2] = bad_col;
+    stats[3] = what;
     return 0;
 }

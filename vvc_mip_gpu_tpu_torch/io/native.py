@@ -1,4 +1,4 @@
-"""ctypes bindings of the port's C CSV reader and writers
+"""ctypes bindings of the port's C CSV readers and writers
 (``csrc/io_native.c``), built with the host C compiler at first use
 (``ops/_build.py``).
 
@@ -36,8 +36,10 @@ def _lib() -> ctypes.CDLL:
     lib.io_write_decisions_csv.argtypes = [
         ctypes.c_char_p, ctypes.c_char_p, _I64, _I64, _P, _P, _I64, _I64,
         _P, _P, _P, _P, _P, _P, _P, _P]
+    lib.io_read_table_csv.argtypes = [ctypes.c_char_p, _I64, _P, _I64, _P,
+                                      _P, _I64, _P]
     for fn in (lib.io_read_samples_csv, lib.io_write_samples_csv,
-               lib.io_write_decisions_csv):
+               lib.io_write_decisions_csv, lib.io_read_table_csv):
         fn.restype = ctypes.c_int
     return lib
 
@@ -73,6 +75,39 @@ def read_samples_csv(path, width: int, rows: int, skip_rows: int):
                                       skip_rows, _ptr(out), _ptr(stats)),
            path)
     return out, tuple(int(v) for v in stats)
+
+
+TEXT_STRIDE = 32  # bytes per text field read by read_table_csv
+_TABLE_ERRORS = {1: "a field count other than the header's",
+                 2: "not an integer of at most 18 digits",
+                 3: f"text longer than {TEXT_STRIDE - 1} bytes"}
+
+
+def read_table_csv(path, is_text) -> list[np.ndarray]:
+    """The data rows of a CSV table with a header line and
+    ``len(is_text)`` columns, one array per column: int64, or bytes
+    (``S{TEXT_STRIDE}``) where ``is_text`` is true.  Blank lines are
+    skipped.  Raises ValueError, naming the line and the column, at the
+    first field that does not parse."""
+    n_cols = len(is_text)
+    flags = np.ascontiguousarray(is_text, np.uint8)
+    stats = np.zeros(4, np.int64)
+    lib = _lib()
+    _check(lib.io_read_table_csv(os.fsencode(path), n_cols, _ptr(flags), 0,
+                                 None, None, TEXT_STRIDE, _ptr(stats)), path)
+    rows = int(stats[0])
+    ints = np.empty((n_cols, rows), np.int64)
+    text = np.empty((int(flags.sum()), rows), f"S{TEXT_STRIDE}")
+    _check(lib.io_read_table_csv(os.fsencode(path), n_cols, _ptr(flags),
+                                 rows, _ptr(ints), _ptr(text), TEXT_STRIDE,
+                                 _ptr(stats)), path)
+    if stats[3]:
+        raise ValueError(
+            f"{os.fspath(path)}: data row {int(stats[1])}"
+            + (f", column {int(stats[2])}" if stats[2] >= 0 else "")
+            + f": {_TABLE_ERRORS.get(int(stats[3]), 'changed while read')}")
+    texts = iter(text)
+    return [next(texts) if flag else col for flag, col in zip(flags, ints)]
 
 
 def write_samples_csv(path, samples) -> None:

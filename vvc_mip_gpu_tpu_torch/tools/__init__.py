@@ -6,5 +6,6 @@ that chip_smoke.py's bounds use), the multi-device scaling report
 (``scaling_report``), the host CPU's filtering sweep against the NumPy
 golden filters (``profile_cpu_filtering``), the in-context per-class,
 leave-one-out and batch-size profiler of the search
-(``profile_incontext``) and the example frame-CSV writer
-(``make_example_frames``)."""
+(``profile_incontext``), the example frame-CSV writer
+(``make_example_frames``) and the decisions-CSV diff without pandas
+(``diff_decisions``)."""
