@@ -89,6 +89,26 @@ said otherwise:
   timed beside its 17 kernels and their bounds (and at batch 64 at
   416x240), and the port's bench at each size (headline, --filtered;
   --batch 64 at 416x240) as child processes;
+- (m) 3840x2160 (17 CTU rows, the last of 112 samples) through every
+  entry point, the golden model on a spawned pool for two frames while
+  the card works: (m.1) the 32 filter pairs against the golden filters
+  on a noise and a smooth frame; (m.2) the main path over 16 distinct
+  frames, frames 0-1 against the plain path and frame 0's minSadHad
+  against the golden model; (m.3) the full report of the noise frame and
+  (m.4) the filtered full report of the CLI's POC 0 (FILTER on the card)
+  against the golden model (valid CUs, masks equal) and the latter whole
+  against the plain path; (m.5) the CLI (filtered, full report, two
+  frames, --TargetCTU of the bottom-right CTU) against the card's costs
+  byte for byte, each 4K decisions CSV deleted once compared, and the
+  target CTU's POC-0 rows against the golden model's export (byte for
+  byte on in-frame CUs); (m.6) the CLI's --LatencyMode on one frame
+  against MipCostEngine's export; (m.7) the sharded engine (1, 2)
+  filtered and (2, 2) on 4 frames, and the latency engine with 4 parts
+  in both regimes, against MipCostEngine; (m.8) the inspect readback at
+  the bottom-right, bottom-left and an interior CTU; then, the pool
+  gone, (m.9) the main path timed beside its 17 kernels and their
+  bounds, and the port's bench at 4K with --latency and --window
+  reference as child processes;
 - (k) the card's costs against the port's own golden cost oracles, on
   valid CUs (the golden model clips out-of-frame CU coordinates, the
   port replicates edges), in int64, each validity mask against the
@@ -130,7 +150,7 @@ import numpy as np
 import torch
 
 MAIN_W, MAIN_H, MAIN_BATCH = 1920, 1080, 16
-UHD_W, UHD_H = 3840, 2160  # phase (i)
+UHD_W, UHD_H = 3840, 2160  # phases (i), (k.3) and (m)
 # phase (i): the bench's modes, in order; the 3840x2160 runs need the
 # 3840x2160 check to have passed
 BENCH_RUNS = ([], ["--filtered"], ["--window", "reference"],
@@ -165,6 +185,15 @@ REF_BENCH_RUNS = (
         ["--resolution", f"{w}x{h}", "--filtered"])),
     ["--resolution", "{}x{}".format(*REF_SIZES[0]), "--batch",
      str(REF_LARGE_BATCH)])
+# phase (m): 3840x2160 through every entry point.  The bench's 4K runs
+# that (i) does not make (no --with-export: 16 frames of 4K CSV are ~45
+# GB); the sharded (2, 2) mesh's frames; the bytes a decisions CSV row
+# takes at most there, for the free-space check
+UHD_BENCH_RUNS = (["--resolution", f"{UHD_W}x{UHD_H}", "--latency"],
+                  ["--resolution", f"{UHD_W}x{UHD_H}", "--window",
+                   "reference"])
+UHD_MESH_FRAMES = 4
+CSV_ROW_BYTES = 64
 # phase (f.3): the JAX package's two multi-process cases
 # (tests/test_multiprocess.py:178 and :80-81) at 256x192
 MULTI_PROCESS_CASES = {
@@ -511,9 +540,7 @@ def phase_inspect(failures) -> int:
     Returns the kernel's launches in this path."""
     from vvc_mip_gpu_tpu_torch.constants import num_ctus
     from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
-    from vvc_mip_gpu_tpu_torch.models.inspect import inspect_ctu
     from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
-    from vvc_mip_gpu_tpu_torch.ops.pred import mip_reduced_pred
 
     rng = np.random.default_rng(7)
     noise = rng.integers(0, 1024, (MAIN_H, MAIN_W)).astype(np.int32)
@@ -530,6 +557,17 @@ def phase_inspect(failures) -> int:
              (smooth, filtered, 41, n_ctu - 1), (smooth, filtered, 29, 3),
              (smooth, filtered, 46, bottom + 10),
              (smooth, filtered, 27, bottom + 5)]
+    return inspect_cases(cases, "", failures)
+
+
+def inspect_cases(cases: list, where: str, failures) -> int:
+    """inspect_ctu through mip_reduced_pred on the card for each (frame,
+    reference or None, group, CTU) of ``cases``, against the host's
+    readback; the kernel's launches must be one a readback.  Returns
+    them."""
+    from vvc_mip_gpu_tpu_torch.models.inspect import inspect_ctu
+    from vvc_mip_gpu_tpu_torch.ops.pred import mip_reduced_pred
+
     torch.cuda.synchronize()
     mip_reduced_pred.launches = 0
     results = [inspect_ctu(frame, ctu, group, ref_frame=ref,
@@ -542,17 +580,17 @@ def phase_inspect(failures) -> int:
         bad = [k for k in host if k != "group" and not (
             k in dev and np.array_equal(dev[k], host[k]))]
         if sorted(dev) != sorted(host) or bad:
-            failures.append(f"inspect group {group} CTU {ctu}: {bad}")
+            failures.append(f"inspect{where} group {group} CTU {ctu}: {bad}")
         shapes = ", ".join(f"{k} {v.shape}" for k, v in dev.items()
                            if k != "group")
-        print(f"check inspect group {group} ({dev['group']}) CTU {ctu}"
-              f"{' filtered ref' if ref is not None else ''}: "
+        print(f"check inspect{where} group {group} ({dev['group']}) CTU "
+              f"{ctu}{' filtered ref' if ref is not None else ''}: "
               f"{'bit-exact' if not bad else 'DIFFERS in ' + str(bad)} "
               f"({shapes})")
-    print(f"inspect path: mip_reduced_pred launches {launches} for "
+    print(f"inspect path{where}: mip_reduced_pred launches {launches} for "
           f"{len(cases)} readbacks", flush=True)
     if launches != len(cases):
-        failures.append(f"inspect path launched mip_reduced_pred "
+        failures.append(f"inspect path{where} launched mip_reduced_pred "
                         f"{launches} times, want {len(cases)}")
     return launches
 
@@ -676,17 +714,20 @@ def differing(got, want, fields, valid=None) -> list[str]:
     return bad
 
 
-def phase_sharded(frames: torch.Tensor, main_msh: torch.Tensor, card: str,
-                  failures) -> dict:
-    """(f.1) ShardedMipCostEngine on this one card over the main path's
-    batch: the (1, 1) mesh and the (2, 2) mesh (four shards on four
-    streams, real halo rows) max-performance, then the (1, 2) mesh in the
-    filtered full report, whose band 1 reads band 0's last FILTERED row.
-    Each against MipCostEngine on the edge-padded frames (whole padded
-    tensors) and on the true frames (valid CUs of the true CTUs; the main
-    path's minSadHad for max-performance), its mask against
-    _validity_mask_np and its launches against n_shards x (1, 7, 9); then
-    timed.  Returns {mesh: ms per batch}."""
+SHARDED_MESHES = ((1, 1, True), (2, 2, True), (1, 2, False))
+
+
+def sharded_checks(frames: torch.Tensor, main_msh: torch.Tensor, width: int,
+                   height: int, meshes, failures) -> dict:
+    """ShardedMipCostEngine on this one card over ``frames`` for each
+    (n_data, n_space, max_performance) of ``meshes`` (n_data x n_space
+    shards on as many streams, real halo rows; in the filtered full report
+    band s reads band s-1's last FILTERED row).  Each against
+    MipCostEngine on the edge-padded frames (whole padded tensors) and on
+    the true frames (valid CUs of the true CTUs; ``main_msh``, the main
+    path's minSadHad of ``frames``, for max-performance), its mask against
+    _validity_mask_np and its launches against n_shards x (1, 7, 9).
+    Returns {mesh: (engine, reference frames or None)}."""
     from vvc_mip_gpu_tpu_torch.models.cost_engine import (
         FrameCosts, MipCostEngine, _validity_mask)
     from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
@@ -695,22 +736,23 @@ def phase_sharded(frames: torch.Tensor, main_msh: torch.Tensor, card: str,
         _validity_mask_np)
 
     dev = frames.device
-    valid = torch.from_numpy(_validity_mask(MAIN_W, MAIN_H)).to(dev)
+    valid = torch.from_numpy(_validity_mask(width, height)).to(dev)
     n_ctu = valid.shape[0]
     refs = filter_frames(frames, *FILTER)
-    full_true = MipCostEngine(MAIN_W, MAIN_H).compute_batch(frames, refs)
-    times = {}
-    for n_data, n_space, mp in ((1, 1, True), (2, 2, True), (1, 2, False)):
-        name = (f"({n_data}, {n_space}) "
+    full_true = MipCostEngine(width, height).compute_batch(frames, refs)
+    engines = {}
+    for n_data, n_space, mp in meshes:
+        name = (f"{width}x{height} ({n_data}, {n_space}) "
                 f"{'max-performance' if mp else 'filtered full report'}")
         mesh = make_mesh(n_data, n_space, [dev] * (n_data * n_space))
-        engine = ShardedMipCostEngine(MAIN_W, MAIN_H, mesh,
+        engine = ShardedMipCostEngine(width, height, mesh,
                                       max_performance=mp)
         ref = None if mp else refs
+        engines[name] = engine, ref
         got, launches = count_launches(lambda: engine(frames, ref))
         n = n_data * n_space
         fields = ("min_sad_had",) if mp else ("sad", "satd", "min_sad_had")
-        padded = MipCostEngine(MAIN_W, engine.padded_height,
+        padded = MipCostEngine(width, engine.padded_height,
                                max_performance=mp).compute_batch(
             engine.pad_frames(frames),
             None if mp else engine.pad_frames(refs))
@@ -722,19 +764,32 @@ def phase_sharded(frames: torch.Tensor, main_msh: torch.Tensor, card: str,
         bad += [f"true CTUs: {b}" for b in differing(got_true, true, fields,
                                                      valid)]
         mask_ok = np.array_equal(got.valid.cpu().numpy(), _validity_mask_np(
-            MAIN_W, MAIN_H, engine.padded_height))
+            width, height, engine.padded_height))
         if not mask_ok:
             bad.append("validity mask")
         if launches != [n, 7 * n, 9 * n]:
             bad.append(f"launches {launches}, want {[n, 7 * n, 9 * n]}")
         if bad:
             failures.append(f"sharded {name}: {bad}")
-        print(f"check sharded {name}, padded to {engine.padded_height} rows: "
-              f"launches {launches}; whole padded tensors vs MipCostEngine "
-              f"on edge-padded frames, valid CUs of the true CTUs vs "
-              f"MipCostEngine, mask: {'bit-exact' if not bad else bad}",
-              flush=True)
+        print(f"check sharded {name}, {frames.shape[0]} frames padded to "
+              f"{engine.padded_height} rows: launches {launches}; whole "
+              f"padded tensors vs MipCostEngine on edge-padded frames, valid "
+              f"CUs of the true CTUs vs MipCostEngine, mask: "
+              f"{'bit-exact' if not bad else bad}", flush=True)
         del got, got_true
+    return engines
+
+
+def phase_sharded(frames: torch.Tensor, main_msh: torch.Tensor, card: str,
+                  failures) -> dict:
+    """(f.1) sharded_checks over the main path's batch for SHARDED_MESHES
+    (the (1, 1) and (2, 2) meshes max-performance, the (1, 2) mesh in the
+    filtered full report), then each timed.  Returns {mesh: ms per
+    batch}."""
+    times = {}
+    for name, (engine, ref) in sharded_checks(
+            frames, main_msh, MAIN_W, MAIN_H, SHARDED_MESHES,
+            failures).items():
         ms = Timer(lambda: engine(frames, ref), TIMED_ITERS).ms
         times[name] = ms
         print(f"sharded {name}: {ms:.3f} ms per batch of {frames.shape[0]} "
@@ -755,29 +810,26 @@ def median_ms(fn, runs: int = 10) -> float:
     return float(np.median(times))
 
 
-def phase_latency(frame: np.ndarray, dev: torch.device, card: str,
-                  failures) -> dict:
-    """(f.2) LatencyMipCostEngine on one 1080p host frame with [dev]
-    (1 part) and [dev] x 4 (4 parts on 4 streams), max-performance on
-    the original samples and the full report on the filtered reference:
-    whole tensors against MipCostEngine(frame), one launch per class in
-    all.  Then single-frame latency, host frame to host arrays, median
-    of 10: MipCostEngine and both latency engines, max-performance.
-    Returns {engine: ms}."""
+def latency_checks(frame: np.ndarray, width: int, height: int,
+                   dev: torch.device, parts, failures) -> dict:
+    """LatencyMipCostEngine on one host frame with [dev] x n (n parts on
+    n streams) for each n of ``parts``, max-performance on the original
+    samples and the full report on the filtered reference: whole tensors
+    against MipCostEngine(frame), one launch per class in all, the costs
+    on the host.  Returns {(n, max_performance): engine}."""
     from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
     from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
     from vvc_mip_gpu_tpu_torch.parallel.latency_engine import (
         LatencyMipCostEngine)
-    from vvc_mip_gpu_tpu_torch.utils.readback import ReadbackRing
 
     filtered = filter_frames(torch.from_numpy(frame)[None].to(dev),
                              *FILTER)[0].cpu().numpy()
     engines = {}
     for mp, ref in ((True, None), (False, filtered)):
         fields = ("min_sad_had",) if mp else ("sad", "satd", "min_sad_had")
-        want = MipCostEngine(MAIN_W, MAIN_H, max_performance=mp)(frame, ref)
-        for n_parts in (1, 4):
-            engine = LatencyMipCostEngine(MAIN_W, MAIN_H, [dev] * n_parts,
+        want = MipCostEngine(width, height, max_performance=mp)(frame, ref)
+        for n_parts in parts:
+            engine = LatencyMipCostEngine(width, height, [dev] * n_parts,
                                           max_performance=mp)
             engines[n_parts, mp] = engine
             got, launches = count_launches(lambda: engine(frame, ref))
@@ -786,13 +838,26 @@ def phase_latency(frame: np.ndarray, dev: torch.device, card: str,
                 bad.append(f"launches {launches}, want [1, 7, 9]")
             if got.min_sad_had.device.type != "cpu":
                 bad.append("costs not on the host")
-            label = (f"{n_parts} part(s), "
+            label = (f"{width}x{height} {n_parts} part(s), "
                      f"{'max-performance' if mp else 'filtered full report'}")
             if bad:
                 failures.append(f"latency {label}: {bad}")
             print(f"check latency {label}: launches {launches}; whole "
                   f"tensors vs MipCostEngine(frame): "
                   f"{'bit-exact' if not bad else bad}", flush=True)
+    return engines
+
+
+def phase_latency(frame: np.ndarray, dev: torch.device, card: str,
+                  failures) -> dict:
+    """(f.2) latency_checks on one 1080p host frame with 1 part and with
+    4.  Then single-frame latency, host frame to host arrays, median of
+    10: MipCostEngine and both latency engines, max-performance.
+    Returns {engine: ms}."""
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
+    from vvc_mip_gpu_tpu_torch.utils.readback import ReadbackRing
+
+    engines = latency_checks(frame, MAIN_W, MAIN_H, dev, (1, 4), failures)
     single = MipCostEngine(MAIN_W, MAIN_H, max_performance=True)
     ring = ReadbackRing()
     times = {"MipCostEngine": median_ms(
@@ -1399,23 +1464,28 @@ def spot_values(costs, b: int, spots: list) -> list:
 
 
 def reference_card(width: int, height: int, frames: np.ndarray,
-                   smooth: np.ndarray, dev: torch.device) -> tuple:
-    """(l.1)-(l.4) on the card at one of REF_SIZES: the 32 filter pairs
-    against the golden filters on frame 0 and the smooth frame; the main
-    path, MipCostEngine(max_performance=True).compute_batch over the 16
-    distinct ``frames``, frames 0-1 whole against the plain path; the
-    full report of frame 0; the filtered full report of ``smooth`` for
-    each of REF_FILTERS, filtered on the card.  Each path's launches held
-    to 1 / 7 / 9.  Returns ({path: FrameCosts} for the golden model's
-    comparison, what failed)."""
-    from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
+                   smooth: np.ndarray, dev: torch.device,
+                   filtered: np.ndarray | None = None, filters=REF_FILTERS,
+                   phase: str = "l") -> tuple:
+    """(l.1)-(l.4) on the card at one frame size (``phase`` "m": (m.1)-
+    (m.4) at 3840x2160): the 32 filter pairs against the golden filters
+    on frame 0 and the smooth frame; the main path,
+    MipCostEngine(max_performance=True).compute_batch over the 16 distinct
+    ``frames``, frames 0-1 whole against the plain path; the full report
+    of frame 0; the filtered full report of ``filtered`` (default
+    ``smooth``) for each of ``filters``, filtered on the card, whole
+    against the plain path.  Each path's launches held to 1 / 7 / 9.
+    Returns ({path: FrameCosts} for the golden model's comparison, what
+    failed)."""
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import (
+        FrameCosts, MipCostEngine)
     from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
 
     size = f"{width}x{height}"
     t0 = time.perf_counter()
-    bad = [f"(l.1) {d}" for d in filters_differ(
+    bad = [f"({phase}.1) {d}" for d in filters_differ(
         np.stack([frames[0], smooth]), dev, False)]
-    print(f"check (l.1) {size} filters: {len(filter_pairs())} "
+    print(f"check ({phase}.1) {size} filters: {len(filter_pairs())} "
           f"variant/KernelIdx pairs x 2 frames (noise, smooth), card vs "
           f"the NumPy golden filters: {'bit-exact' if not bad else bad} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -1425,87 +1495,123 @@ def reference_card(width: int, height: int, frames: np.ndarray,
     f16 = card[:2].to(torch.int16).contiguous()
     same = torch.equal(main.min_sad_had[:2],
                        plain_costs(f16, f16, width, height, 1)[0])
-    print(f"check (l.2) {size} main path, {len(frames)} frames: launches "
-          f"{launches}; minSadHad of frames 0-1 vs the plain path: "
+    print(f"check ({phase}.2) {size} main path, {len(frames)} frames: "
+          f"launches {launches}; minSadHad of frames 0-1 vs the plain path: "
           f"{'bit-exact' if same else 'DIFFERS'}", flush=True)
     if not same:
-        bad.append(f"(l.2) {size} main path differs from the plain path")
+        bad.append(f"({phase}.2) {size} main path differs from the plain "
+                   f"path")
+    del card, f16
     costs, counts = {"main": main}, {"main": launches}
-    runs = {"full": (card[:1], None)}
-    smooth_card = torch.from_numpy(smooth.astype(np.int32))[None].to(dev)
-    for pair in REF_FILTERS:
-        runs[pair] = (smooth_card, filter_frames(smooth_card, *pair))
+    runs = {"full": (torch.from_numpy(frames[:1]).to(dev), None)}
+    filtered_card = torch.from_numpy((smooth if filtered is None else
+                                      filtered).astype(np.int32))[None].to(
+        dev)
+    for pair in filters:
+        runs[pair] = (filtered_card, filter_frames(filtered_card, *pair))
     for name, (fr, ref) in runs.items():
         costs[name], counts[name] = count_launches(
             lambda: MipCostEngine(width, height).compute_batch(fr, ref))
     bad += [f"{size} {name} launches {n}, want [1, 7, 9]"
             for name, n in counts.items() if n != [1, 7, 9]]
-    print(f"(l) {size} launches: " + ", ".join(
+    print(f"({phase}) {size} launches: " + ", ".join(
         f"{name} {n}" for name, n in counts.items()), flush=True)
+    for pair in filters:
+        fr, ref = runs[pair]
+        sad, satd = plain_costs(fr.to(torch.int16).contiguous(),
+                                ref.to(torch.int16).contiguous(), width,
+                                height, 2)
+        want = FrameCosts(sad, satd, torch.minimum(2 * sad, satd), None)
+        diff = differing(costs[pair], want, ("sad", "satd", "min_sad_had"))
+        del sad, satd, want
+        print(f"check ({phase}.4) {size} {pair[0]}[{pair[1]}] filtered on "
+              f"the card, full report: whole tensors (out-of-frame CUs "
+              f"included) vs the plain path: "
+              f"{'bit-exact' if not diff else diff}", flush=True)
+        bad += [f"({phase}.4) {size} {pair[0]}[{pair[1]}] vs the plain "
+                f"path: {d}" for d in diff]
     return costs, bad
 
 
-def reference_cli(tmp: str, card: str) -> tuple[dict, list[str]]:
-    """(l.5) the port's CLI in-process at each of REF_SIZES, filtered
-    (FILTER), full report, 2 frames, a target CTU: its decisions and
-    target-CTU CSVs against the C writer's export of the card's costs of
-    the same frames, byte for byte.  At the smallest size one chunk (the
-    default --BatchFrames); at the others one frame a chunk, through both
-    slots of the readback ring and the writer thread.  The smallest size's
-    files stay for the golden comparison.  Returns ({size: (prefix, wall
-    s)}, what failed)."""
+def cli_against_card(width: int, height: int, target_ctu: int, chunks: int,
+                     tmp: str, card: str, label: str,
+                     keep: bool = True) -> tuple[str, float, list[str]]:
+    """The port's CLI in-process at ``width`` x ``height``: filtered
+    (FILTER), full report, 2 synthetic frames in ``chunks`` chunks (1: the
+    default --BatchFrames; 2: one frame a chunk, through both slots of the
+    readback ring and the writer thread), --TargetCTU ``target_ctu``.  Its
+    decisions and target-CTU CSVs against the C writer's export of the
+    card's costs of the same frames, byte for byte, and its launches one
+    per class a chunk.  Without ``keep`` each decisions CSV is deleted
+    once compared (the target-CTU CSV stays).  Returns (the output prefix,
+    wall seconds, what failed)."""
     from vvc_mip_gpu_tpu_torch.io.export import (
         export_decisions_csv, export_target_ctu_csv)
     from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
     from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
     from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
 
+    size = f"{width}x{height}"
+    prefix = str(Path(tmp) / f"cli{size}_")
+    args = ["-f", "2", "-s", size, "--Synthetic", "--FullDistortion",
+            "--FilterType", FILTER[0], "--KernelIdx", str(FILTER[1]),
+            "--TargetCTU", str(target_ctu),
+            *([] if chunks == 1 else ["--BatchFrames", "1"])]
+    (rc, wall, _), launches = count_launches(lambda: cli_in_process(
+        args + ["-l", prefix], Path(tmp) / f"cli{size}_stdout.txt"))
+    frames = torch.from_numpy(synthetic_frames(
+        2, width, height).astype(np.int32)).cuda()
+    costs = MipCostEngine(width, height).compute_batch(
+        frames, filter_frames(frames, *FILTER))
+    sad, satd, msh = (t.cpu().numpy() for t in (
+        costs.sad, costs.satd, costs.min_sad_had))
+    del frames, costs
+    again = Path(tmp) / f"cli{size}_again.csv"
+    differ, mb = [], []
+    for poc in (0, 1):
+        export_decisions_csv(again, msh[poc], width, sad=sad[poc],
+                             satd=satd[poc], poc=poc)
+        path = Path(f"{prefix}mip_decisions_poc{poc}.csv")
+        mb.append(path.stat().st_size / 1e6)
+        if not filecmp.cmp(again, path, shallow=False):
+            differ.append(path.name)
+        again.unlink()
+        if not keep:
+            path.unlink()
+    export_target_ctu_csv(
+        again, list(msh[:, target_ctu]), width, target_ctu,
+        sad_per_frame=list(sad[:, target_ctu]),
+        satd_per_frame=list(satd[:, target_ctu]), pocs=[0, 1])
+    name = f"target_ctu{target_ctu}.csv"
+    if not filecmp.cmp(again, prefix + name, shallow=False):
+        differ.append(name)
+    again.unlink()
+    want = [chunks, 7 * chunks, 9 * chunks]
+    bad = []
+    if rc or launches != want or differ:
+        bad.append(f"{label} CLI {size}: rc {rc}, launches {launches} (want "
+                   f"{want}), files differing from the export of the card's "
+                   f"costs {differ}")
+    print(f"check {label} CLI {' '.join(args)}: rc {rc}, {wall:.2f} s wall, "
+          f"launches {launches}; decisions CSVs ({mb[0]:.1f} and "
+          f"{mb[1]:.1f} MB) and the target CSV equal the export of the "
+          f"card's costs byte for byte: {not differ} ({card})", flush=True)
+    return prefix, wall, bad
+
+
+def reference_cli(tmp: str, card: str) -> tuple[dict, list[str]]:
+    """(l.5) cli_against_card at each of REF_SIZES, target CTU
+    REF_TARGET_CTU: one chunk at the smallest size, whose files stay for
+    the golden comparison, one frame a chunk at the others.  Returns
+    ({size: (prefix, wall s)}, what failed)."""
     out, bad = {}, []
     for width, height in REF_SIZES:
-        size = f"{width}x{height}"
-        prefix = str(Path(tmp) / f"ref{size}_")
-        chunks = 1 if (width, height) == REF_SIZES[0] else 2
-        args = ["-f", "2", "-s", size, "--Synthetic", "--FullDistortion",
-                "--FilterType", FILTER[0], "--KernelIdx", str(FILTER[1]),
-                "--TargetCTU", str(REF_TARGET_CTU),
-                *([] if chunks == 1 else ["--BatchFrames", "1"])]
-        (rc, wall, _), launches = count_launches(lambda: cli_in_process(
-            args + ["-l", prefix], Path(tmp) / "ref_stdout.txt"))
-        frames = torch.from_numpy(synthetic_frames(
-            2, width, height).astype(np.int32)).cuda()
-        costs = MipCostEngine(width, height).compute_batch(
-            frames, filter_frames(frames, *FILTER))
-        sad, satd, msh = (t.cpu().numpy() for t in (
-            costs.sad, costs.satd, costs.min_sad_had))
-        again = Path(tmp) / "ref_again.csv"
-        differ = []
-        for poc in (0, 1):
-            export_decisions_csv(again, msh[poc], width, sad=sad[poc],
-                                 satd=satd[poc], poc=poc)
-            name = f"mip_decisions_poc{poc}.csv"
-            if not filecmp.cmp(again, prefix + name, shallow=False):
-                differ.append(name)
-        export_target_ctu_csv(
-            again, list(msh[:, REF_TARGET_CTU]), width, REF_TARGET_CTU,
-            sad_per_frame=list(sad[:, REF_TARGET_CTU]),
-            satd_per_frame=list(satd[:, REF_TARGET_CTU]), pocs=[0, 1])
-        name = f"target_ctu{REF_TARGET_CTU}.csv"
-        if not filecmp.cmp(again, prefix + name, shallow=False):
-            differ.append(name)
-        again.unlink()
-        if (width, height) != REF_SIZES[0]:
-            for path in Path(tmp).glob(f"ref{size}_*"):
-                path.unlink()
-        want = [chunks, 7 * chunks, 9 * chunks]
-        if rc or launches != want or differ:
-            bad.append(f"(l.5) CLI {size}: rc {rc}, launches {launches} "
-                       f"(want {want}), files differing from the export of "
-                       f"the card's costs {differ}")
-        print(f"check (l.5) CLI {' '.join(args)}: rc {rc}, {wall:.2f} s "
-              f"wall, launches {launches}; decisions and target CSVs equal "
-              f"the export of the card's costs byte for byte: {not differ} "
-              f"({card})", flush=True)
-        out[size] = (prefix, wall)
+        smallest = (width, height) == REF_SIZES[0]
+        prefix, wall, more = cli_against_card(
+            width, height, REF_TARGET_CTU, 1 if smallest else 2, tmp, card,
+            "(l.5)", keep=smallest)
+        out[f"{width}x{height}"] = (prefix, wall)
+        bad += more
     return out, bad
 
 
@@ -1548,6 +1654,72 @@ def golden_csv_diff(prefix: str, golden: list, tmp: str) -> list[str]:
     return bad
 
 
+def size_timings(w: int, h: int, b: int, dev: torch.device,
+                 int_rate: float, card: str, bad: list, phase: str) -> dict:
+    """The main path at ``w`` x ``h``, batch ``b`` of uniform-random frames,
+    with the host quiet: back to back (CUDA events), the card's busy time
+    in it and its 17 cost kernels by name (torch.profiler), and each class
+    alone beside its bound (class_times); printed under ``phase``.
+    Returns {"e2e_ms", "busy_ms", "cost_kernels_ms", "kernels_ms",
+    "bound_ms"}."""
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
+
+    frames = torch.from_numpy(np.random.default_rng(60).integers(
+        0, 1024, (b, h, w), dtype=np.int32)).to(dev)
+    engine = MipCostEngine(w, h, max_performance=True)
+    e2e = Timer(lambda: engine.compute_batch(frames), TIMED_ITERS, 2).ms
+    on_card = device_times(lambda: engine.compute_batch(frames), TIMED_ITERS)
+    in_batch = {f"{m[1]}x{m[2]}": ms for name, ms in on_card.items()
+                if (m := COST_KERNEL.search(name))}
+    if len(in_batch) != 17:
+        bad.append(f"{w}x{h} batch {b}: the profiler saw {len(in_batch)} "
+                   f"cost kernels, want 17: {sorted(on_card)}")
+    busy = sum(on_card.values())
+    per_kernel = class_times(frames.to(torch.int16).contiguous(), w, h,
+                             int_rate, bad, f" at {w}x{h} batch {b}")
+    alone = {c: ms for agg in per_kernel.values()
+             for c, ms in agg["classes"].items()}
+    bounds = {c: ms for agg in per_kernel.values()
+              for c, ms in agg["class_bounds"].items()}
+    t = {"e2e_ms": e2e, "busy_ms": busy,
+         "cost_kernels_ms": sum(in_batch.values()),
+         "kernels_ms": sum(alone.values()), "bound_ms": sum(bounds.values())}
+    print(f"({phase}) {w}x{h} batch {b}, each class in the batch (profiler) "
+          f"/ alone (CUDA events) / bound, ms: " + ", ".join(
+              f"{c} {in_batch.get(c, float('nan')):.4f} / {alone[c]:.4f} "
+              f"/ {bounds[c]:.4f}" for c in alone), flush=True)
+    print(f"({phase}) {w}x{h} main path: {e2e:.4f} ms per batch of {b} "
+          f"({b * 1e3 / e2e:.1f} frames/s); on the card (torch.profiler) "
+          f"{busy:.4f} ms busy, the 17 cost kernels "
+          f"{t['cost_kernels_ms']:.4f} ms (bound {t['bound_ms']:.4f} ms); "
+          f"host share {e2e - busy:.4f} ms ({(e2e - busy) / e2e:.1%} of "
+          f"the batch idle); the 17 kernels one by one "
+          f"{t['kernels_ms']:.4f} ms ({card})", flush=True)
+    return t
+
+
+def bench_against_kernels(extra: list[str], times: dict, card: str,
+                          bad: list) -> None:
+    """bench_child with the flags ``extra`` (``--resolution WxH`` first);
+    when it times the compute window of the main path (no --filtered,
+    --window, --with-export or --latency), its ms a batch on the host's
+    clock beside the 17 cost kernels' device ms of that size and batch in
+    ``times`` ({(w, h, b): size_timings})."""
+    rec = bench_child(extra, bad)
+    other_window = {"--filtered", "--window", "--with-export", "--latency"}
+    if rec and not other_window & set(extra):
+        w, h = (int(v) for v in extra[1].split("x"))
+        b = (int(extra[extra.index("--batch") + 1]) if "--batch" in extra
+             else MAIN_BATCH)
+        host_ms = b * 1e3 / rec["value"]
+        kernels = times[w, h, b]["cost_kernels_ms"]
+        print(f"bench {' '.join(extra)}: {host_ms:.4f} ms a batch of {b} "
+              f"on the host's clock, {rec['device_ms_per_batch']} on the "
+              f"card's; minus the 17 cost kernels in the batch "
+              f"({kernels:.4f} ms): {host_ms - kernels:.4f} ms ({card})",
+              flush=True)
+
+
 def phase_reference(tmp: str, dev: torch.device, card: str,
                     int_rate: float, failures) -> dict:
     """(l) the reference's other three frame sizes, REF_SIZES, on the
@@ -1567,7 +1739,6 @@ def phase_reference(tmp: str, dev: torch.device, card: str,
     from vvc_mip_gpu_tpu_torch.constants import num_ctus
     from vvc_mip_gpu_tpu_torch.golden.filters_golden import filter_frame
     from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
-    from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
     from vvc_mip_gpu_tpu_torch.tools.profile_cpu_filtering import host_cpus
 
     t_phase = time.perf_counter()
@@ -1639,58 +1810,221 @@ def phase_reference(tmp: str, dev: torch.device, card: str,
     sizes = [(w, h, MAIN_BATCH) for w, h in REF_SIZES]
     sizes += [(*REF_SIZES[0], REF_LARGE_BATCH), (MAIN_W, MAIN_H, MAIN_BATCH)]
     for w, h, b in sizes:
-        frames = torch.from_numpy(np.random.default_rng(60).integers(
-            0, 1024, (b, h, w), dtype=np.int32)).to(dev)
-        engine = MipCostEngine(w, h, max_performance=True)
-        e2e = Timer(lambda: engine.compute_batch(frames), TIMED_ITERS, 2).ms
-        on_card = device_times(lambda: engine.compute_batch(frames),
-                               TIMED_ITERS)
-        in_batch = {f"{m[1]}x{m[2]}": ms for name, ms in on_card.items()
-                    if (m := COST_KERNEL.search(name))}
-        if len(in_batch) != 17:
-            bad.append(f"{w}x{h} batch {b}: the profiler saw {len(in_batch)} "
-                       f"cost kernels, want 17: {sorted(on_card)}")
-        busy = sum(on_card.values())
-        per_kernel = class_times(frames.to(torch.int16).contiguous(), w, h,
-                                 int_rate, bad, f" at {w}x{h} batch {b}")
-        alone = {c: ms for agg in per_kernel.values()
-                 for c, ms in agg["classes"].items()}
-        bounds = {c: ms for agg in per_kernel.values()
-                  for c, ms in agg["class_bounds"].items()}
-        times[w, h, b] = {
-            "e2e_ms": e2e, "busy_ms": busy,
-            "cost_kernels_ms": sum(in_batch.values()),
-            "kernels_ms": sum(alone.values()),
-            "bound_ms": sum(bounds.values())}
-        t = times[w, h, b]
-        print(f"(l) {w}x{h} batch {b}, each class in the batch (profiler) / "
-              f"alone (CUDA events) / bound, ms: " + ", ".join(
-                  f"{c} {in_batch.get(c, float('nan')):.4f} / {alone[c]:.4f} "
-                  f"/ {bounds[c]:.4f}" for c in alone), flush=True)
-        print(f"(l) {w}x{h} main path: {e2e:.4f} ms per batch of {b} "
-              f"({b * 1e3 / e2e:.1f} frames/s); on the card (torch.profiler) "
-              f"{busy:.4f} ms busy, the 17 cost kernels "
-              f"{t['cost_kernels_ms']:.4f} ms (bound {t['bound_ms']:.4f} ms); "
-              f"host share {e2e - busy:.4f} ms ({(e2e - busy) / e2e:.1%} of "
-              f"the batch idle); the 17 kernels one by one "
-              f"{t['kernels_ms']:.4f} ms ({card})", flush=True)
+        times[w, h, b] = size_timings(w, h, b, dev, int_rate, card, bad,
+                                      "l")
     torch.cuda.empty_cache()
     for extra in REF_BENCH_RUNS:
-        rec = bench_child(extra, bad)
-        if rec and "--filtered" not in extra:
-            w, h = (int(v) for v in extra[1].split("x"))
-            b = int(extra[3]) if "--batch" in extra else MAIN_BATCH
-            host_ms = b * 1e3 / rec["value"]
-            kernels = times[w, h, b]["cost_kernels_ms"]
-            print(f"bench {' '.join(extra)}: {host_ms:.4f} ms a batch of {b} "
-                  f"on the host's clock, {rec['device_ms_per_batch']} on "
-                  f"the card's; minus the 17 cost kernels in the batch "
-                  f"({kernels:.4f} ms): {host_ms - kernels:.4f} ms ({card})",
-                  flush=True)
+        bench_against_kernels(extra, times, card, bad)
     if bad:
         failures.append(f"reference sizes (l): {bad}")
     wall = time.perf_counter() - t_phase
     print(f"phase (l): {wall:.1f} s ({card})", flush=True)
+    return {"times": times, "golden_s": golden_s, "phase_s": wall}
+
+
+def cli_latency_against_engine(width: int, height: int, tmp: str,
+                               card: str, label: str) -> list[str]:
+    """The CLI's --LatencyMode on one synthetic frame, max-performance
+    (the latency engine over every visible card, read back through the
+    pinned ring): its decisions CSV against the C writer's export of
+    MipCostEngine's costs of that frame, byte for byte, then deleted; one
+    launch per class.  Returns what failed."""
+    from vvc_mip_gpu_tpu_torch.io.export import export_decisions_csv
+    from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
+
+    size = f"{width}x{height}"
+    prefix = str(Path(tmp) / f"lat{size}_")
+    args = ["-f", "1", "-s", size, "--Synthetic", "--LatencyMode"]
+    (rc, wall, _), launches = count_launches(lambda: cli_in_process(
+        args + ["-l", prefix], Path(tmp) / f"lat{size}_stdout.txt"))
+    frame = synthetic_frames(1, width, height)[0].astype(np.int32)
+    msh = MipCostEngine(width, height, max_performance=True)(
+        frame).min_sad_had.cpu().numpy()
+    again = Path(tmp) / f"lat{size}_again.csv"
+    export_decisions_csv(again, msh, width)
+    got = Path(prefix + "mip_decisions.csv")
+    same = filecmp.cmp(again, got, shallow=False)
+    mb = got.stat().st_size / 1e6
+    again.unlink()
+    got.unlink()
+    print(f"check {label} CLI {' '.join(args)}: rc {rc}, {wall:.2f} s wall, "
+          f"launches {launches}; its decisions CSV ({mb:.1f} MB) equals the "
+          f"export of MipCostEngine's costs byte for byte: {same} ({card})",
+          flush=True)
+    if rc or not same or launches != [1, 7, 9]:
+        return [f"{label} CLI --LatencyMode {size}: rc {rc}, launches "
+                f"{launches}, CSV equal to the export of MipCostEngine's "
+                f"costs: {same}"]
+    return []
+
+
+def target_golden_differences(path: str, golden: dict, width: int, ctu: int,
+                              poc: int, tmp: str) -> list[str]:
+    """The POC ``poc`` rows of a target-CTU CSV (the CLI's, at ``path``)
+    against the C writer's export of the golden model's costs of CTU
+    ``ctu`` (``golden``: {group: GroupCosts} of that frame): byte for byte
+    on the rows of in-frame CUs; on the rows of out-of-frame CUs, whose
+    costs differ by design (the golden model clips their coordinates, the
+    port replicates edges), the identity columns.  Returns what
+    differs."""
+    from vvc_mip_gpu_tpu_torch.constants import GROUPS
+    from vvc_mip_gpu_tpu_torch.golden import reference_model as gm
+    from vvc_mip_gpu_tpu_torch.io.export import export_target_ctu_csv
+
+    one = {g: gm.GroupCosts(*(a[ctu:ctu + 1] for a in (
+        c.sad, c.satd, c.min_sad_had, c.valid))) for g, c in golden.items()}
+    want_path = Path(tmp) / f"golden_target_ctu{ctu}_poc{poc}.csv"
+    export_target_ctu_csv(
+        want_path, [gm.flatten_strided(one, "min_sad_had")[0]], width, ctu,
+        sad_per_frame=[gm.flatten_strided(one, "sad")[0]],
+        satd_per_frame=[gm.flatten_strided(one, "satd")[0]], pocs=[poc])
+    want = want_path.read_bytes().splitlines()
+    want_path.unlink()
+    lines = Path(path).read_bytes().splitlines()
+    got = [line for line in lines[1:] if line.startswith(b"%d," % poc)]
+    valid = np.concatenate([np.repeat(one[g.index].valid[0], g.total_modes)
+                            for g in GROUPS])
+    bad = [] if lines[0] == want[0] else [f"header {lines[0]!r}"]
+    if len(got) != len(valid) or len(want) != len(valid) + 1:
+        return bad + [f"{len(got)} POC {poc} rows, want {len(valid)}"]
+    rows = want[1:]
+    in_frame = [i for i in np.flatnonzero(valid) if got[i] != rows[i]]
+    identity = [i for i in np.flatnonzero(~valid)
+                if got[i].rsplit(b",", 3)[0] != rows[i].rsplit(b",", 3)[0]]
+    if in_frame:
+        bad.append(f"{len(in_frame)} in-frame rows, first {got[in_frame[0]]!r}"
+                   f" vs the golden model's {rows[in_frame[0]]!r}")
+    if identity:
+        bad.append(f"{len(identity)} out-of-frame rows' identity columns")
+    print(f"check target CTU {ctu} CSV, POC {poc}, vs the export of the "
+          f"golden model's costs: {int(valid.sum())} in-frame rows byte for "
+          f"byte, {int((~valid).sum())} out-of-frame rows by their identity "
+          f"columns: {'equal' if not bad else bad}", flush=True)
+    return bad
+
+
+def phase_uhd_entry_points(tmp: str, dev: torch.device, card: str,
+                           int_rate: float, failures) -> dict:
+    """(m) 3840x2160 through every entry point of the port.  The golden
+    model on a spawned pool, for two frames: uhd_frames()'s noise frame on
+    its original samples and the CLI's POC 0 under FILTER (fed by
+    golden/filters_golden.py).  The card meanwhile: (m.1)-(m.4)
+    reference_card over 16 frames whose frame 0 is the noise frame, the
+    filtered report on the CLI's POC 0; (m.5) cli_against_card with the
+    bottom-right CTU as target, each decisions CSV deleted once compared
+    (too little free space in ``tmp`` is a failure); (m.6) the CLI's
+    --LatencyMode on one frame; (m.7) sharded_checks on the (2, 2) and
+    (1, 2) meshes over UHD_MESH_FRAMES frames and latency_checks with 4
+    parts; (m.8) inspect_cases at the bottom-right, bottom-left and an
+    interior CTU.  Then the golden comparisons (valid CUs, masks equal)
+    and the target CTU's POC-0 rows against the golden model's export;
+    then, the pool gone, (m.9) size_timings at batch 16 and the bench in
+    UHD_BENCH_RUNS.  Returns the timings."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    from vvc_mip_gpu_tpu_torch.constants import num_ctus
+    from vvc_mip_gpu_tpu_torch.golden.filters_golden import filter_frame
+    from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+    from vvc_mip_gpu_tpu_torch.models.cost_engine import PER_CTU
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+    from vvc_mip_gpu_tpu_torch.tools.profile_cpu_filtering import host_cpus
+
+    t_phase = time.perf_counter()
+    size = f"{UHD_W}x{UHD_H}"
+    cols, rows, n_ctu = num_ctus(UHD_W, UHD_H)
+    target = n_ctu - 1  # bottom-right, in the partial bottom CTU row
+    noise, smooth = uhd_frames()
+    frames = np.concatenate([noise[None], np.random.default_rng(70).integers(
+        0, 1024, (MAIN_BATCH - 1, UHD_H, UHD_W), dtype=np.int32)])
+    cli0 = synthetic_frames(2, UHD_W, UHD_H)[0].astype(np.int64)
+    free = shutil.disk_usage(tmp).free
+    need = 3 * n_ctu * PER_CTU * CSV_ROW_BYTES  # two CLI CSVs and an export
+    print(f"(m) {size}: {n_ctu} CTUs, {rows} rows (the last of "
+          f"{UHD_H - (rows - 1) * 128} samples); the temporary directory has "
+          f"{free / 1e9:.1f} GB free, the CLI's CSVs need up to "
+          f"{need / 1e9:.1f} GB at once", flush=True)
+    bad, done = [], []
+    workers = host_cpus()
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        t_pool = time.perf_counter()
+        noise64 = noise.astype(np.int64)
+        pending = {"noise": golden_futures(pool, noise64, noise64, done),
+                   "cli": golden_futures(pool, cli0,
+                                         filter_frame(cli0, *FILTER), done)}
+        # the card meanwhile
+        costs, more = reference_card(UHD_W, UHD_H, frames, smooth, dev,
+                                     filtered=cli0, filters=(FILTER,),
+                                     phase="m")
+        bad += more
+        prefix = None
+        if free < need:
+            bad.append(f"(m.5) the temporary directory has {free / 1e9:.1f} "
+                       f"GB free, the CLI's CSVs need {need / 1e9:.1f} GB")
+        else:
+            prefix, _, more = cli_against_card(UHD_W, UHD_H, target, 1, tmp,
+                                               card, "(m.5)", keep=False)
+            bad += more
+            bad += cli_latency_against_engine(UHD_W, UHD_H, tmp, card,
+                                              "(m.6)")
+        mesh_frames = torch.from_numpy(frames[:UHD_MESH_FRAMES]).to(dev)
+        sharded_checks(mesh_frames,
+                       costs["main"].min_sad_had[:UHD_MESH_FRAMES], UHD_W,
+                       UHD_H, ((2, 2, True), (1, 2, False)), bad)
+        del mesh_frames
+        latency_checks(noise, UHD_W, UHD_H, dev, (4,), bad)
+        filtered = filter_frames(torch.from_numpy(cli0.astype(np.int32))[
+            None].to(dev), *FILTER)[0]
+        interior = (rows // 2) * cols + cols // 2
+        corner = n_ctu - cols  # bottom-left
+        # groups of every SizeId (2, 1, 0) at each CTU
+        inspect_cases(
+            [(noise, None, 0, target), (noise, None, 32, target),
+             (noise, None, 46, target), (cli0, filtered, 8, corner),
+             (cli0, filtered, 35, corner), (cli0, filtered, 46, corner),
+             (smooth, None, 20, interior), (smooth, None, 41, interior),
+             (smooth, None, 46, interior)], f" {size}", bad)
+        golden = {name: {g: f.result() for g, f in futures.items()}
+                  for name, futures in pending.items()}
+    # after the pool's shutdown: every completion callback has run
+    golden_s = max(done) - t_pool
+    full = ("sad", "satd", "min_sad_had")
+    bad += golden_differences(
+        f"(m.2) {size} the main path's minSadHad, frame 0", golden["noise"],
+        {"min_sad_had": costs["main"].min_sad_had[0]},
+        costs["main"].valid[0])
+    bad += golden_differences(
+        f"(m.3) {size} full report, frame 0", golden["noise"],
+        {f: getattr(costs["full"], f)[0] for f in full},
+        costs["full"].valid[0])
+    bad += golden_differences(
+        f"(m.4) {size} the CLI's POC 0, {FILTER[0]}[{FILTER[1]}] on the "
+        f"card vs golden/filters_golden.py for the golden model, full "
+        f"report", golden["cli"],
+        {f: getattr(costs[FILTER], f)[0] for f in full},
+        costs[FILTER].valid[0])
+    if prefix is not None:
+        bad += [f"(m.5) {d}" for d in target_golden_differences(
+            f"{prefix}target_ctu{target}.csv", golden["cli"], UHD_W, target,
+            0, tmp)]
+    del golden, costs
+    print(f"golden model (m): 2 frames {size} in {golden_s:.1f} s wall "
+          f"({golden_s / 2:.1f} s a frame) on {workers} spawned workers "
+          f"({card})", flush=True)
+
+    # (m.9) timings, the host quiet
+    times = {(UHD_W, UHD_H, MAIN_BATCH): size_timings(
+        UHD_W, UHD_H, MAIN_BATCH, dev, int_rate, card, bad, "m.9")}
+    torch.cuda.empty_cache()
+    for extra in UHD_BENCH_RUNS:
+        bench_against_kernels(extra, times, card, bad)
+    if bad:
+        failures.append(f"{size} (m): {bad}")
+    wall = time.perf_counter() - t_phase
+    print(f"phase (m): {wall:.1f} s ({card})", flush=True)
     return {"times": times, "golden_s": golden_s, "phase_s": wall}
 
 
@@ -2050,7 +2384,10 @@ def main() -> int:
     # ---- 13. (l) the reference's other three frame sizes
     with tempfile.TemporaryDirectory() as tmp:
         reference = phase_reference(tmp, dev, card, int_rate, failures)
-    # ---- 14. (k) the card's costs against the golden cost oracles, where
+    # ---- 14. (m) 3840x2160 through every entry point
+    with tempfile.TemporaryDirectory() as tmp:
+        uhd = phase_uhd_entry_points(tmp, dev, card, int_rate, failures)
+    # ---- 15. (k) the card's costs against the golden cost oracles, where
     # no phase times the host
     golden = phase_golden(frames, costs, card, failures)
     print(f"(f) beside the main path's {batch:.3f} ms per batch of "
@@ -2069,14 +2406,16 @@ def main() -> int:
     for b, ms in incontext.items():
         print(f"  (j) in-context search, batch {b}: {ms:.4f} ms per frame "
               f"({card})", flush=True)
-    for (w, h, b), t in reference["times"].items():
-        print(f"  (l) {w}x{h} main path, batch {b}: {t['e2e_ms']:.4f} ms, "
-              f"{b * 1e3 / t['e2e_ms']:.1f} frames/s; the card busy "
-              f"{t['busy_ms']:.4f} ms, its 17 cost kernels "
-              f"{t['cost_kernels_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; "
-              f"idle {1 - t['busy_ms'] / t['e2e_ms']:.1%} ({card})")
-    print(f"  (l) golden model {reference['golden_s']:.1f} s, phase "
-          f"{reference['phase_s']:.1f} s ({card})")
+    for phase, result in (("l", reference), ("m", uhd)):
+        for (w, h, b), t in result["times"].items():
+            print(f"  ({phase}) {w}x{h} main path, batch {b}: "
+                  f"{t['e2e_ms']:.4f} ms, {b * 1e3 / t['e2e_ms']:.1f} "
+                  f"frames/s; the card busy {t['busy_ms']:.4f} ms, its 17 "
+                  f"cost kernels {t['cost_kernels_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms; idle "
+                  f"{1 - t['busy_ms'] / t['e2e_ms']:.1%} ({card})")
+        print(f"  ({phase}) golden model {result['golden_s']:.1f} s, phase "
+              f"{result['phase_s']:.1f} s ({card})")
     print(f"  (k) golden model {golden['golden_s_per_frame']:.1f} s a "
           f"{MAIN_W}x{MAIN_H} frame on {golden['workers']} workers, phase "
           f"{golden['phase_s']:.1f} s ({card})", flush=True)
