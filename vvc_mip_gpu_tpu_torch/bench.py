@@ -382,8 +382,7 @@ def _bench_latency(width, height, devices) -> tuple[float, dict]:
 
     def assemble(outs):
         """The CLI's latency read: gather, the readback ring, finish."""
-        host = ring.read(*engine.gather(outs))
-        return engine.finish([torch.from_numpy(a) for a in host])
+        return engine.assemble(outs, ring.read)
 
     for _ in range(1 + WARMUP):  # the libraries, streams and ring slots
         assemble(engine.dispatch(frame_np))

@@ -208,8 +208,7 @@ def _searcher(cfg: EngineConfig, device: torch.device, n_pending: int):
                                    None if refs is None else refs[pocs[0]])
 
         def read(outs, n):
-            host_fields = ring.read(*engine.gather(outs))
-            costs = engine.finish([torch.from_numpy(a) for a in host_fields])
+            costs = engine.assemble(outs, ring.read)
             return tuple(None if t is None else t[None].numpy()
                          for t in (costs.min_sad_had, costs.sad, costs.satd))
 

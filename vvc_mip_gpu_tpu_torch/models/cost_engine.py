@@ -35,6 +35,7 @@ from vvc_mip_gpu_tpu_torch.constants import (
 )
 from vvc_mip_gpu_tpu_torch.ops.geometry import ClassPlan, class_plans, cu_table
 from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS, CostKernel
+from vvc_mip_gpu_tpu_torch.utils.timing import span
 
 PER_CTU = int(STRIDED_DISTORTIONS_PER_CTU[-1])  # 97840
 
@@ -82,29 +83,34 @@ def _as_samples(frame: torch.Tensor) -> torch.Tensor:
 
 
 def _run_classes(frame, ref, halo_row, is_top: bool, width: int, height: int,
-                 max_performance: bool, classes=None) -> list[torch.Tensor]:
+                 max_performance: bool, classes=None,
+                 timed: bool = False) -> list[torch.Tensor]:
     """Run the selected classes (indices into ``class_plans``; all by
     default) over [B, H, W] frames.  Returns ``[msh]`` or ``[sad, satd]``,
     each int32 [B, nCTU, 97840]; entries of unselected classes are left
-    unwritten."""
-    share_ref = ref is frame
-    frame = _as_samples(frame)
-    ref = frame if share_ref else _as_samples(ref)
-    halo_row = _as_samples(halo_row)
-    if frame.ndim != 3 or tuple(frame.shape[1:]) != (height, width):
-        raise ValueError(f"frames must be [B, {height}, {width}], got "
-                         f"{tuple(frame.shape)}")
-    runs = class_runs(width, height, frame.device)
-    if classes is not None:
-        runs = tuple(runs[i] for i in classes)
-    n_ctu = num_ctus(width, height)[2]
-    outs = [torch.empty((frame.shape[0], n_ctu, PER_CTU), dtype=torch.int32,
-                        device=frame.device)
-            for _ in range(1 if max_performance else 2)]
-    for run in runs:
-        run.kernel(frame, ref, halo_row, is_top, run.plan, run.table,
-                   run.weights, outs)
-    return outs
+    unwritten.  Span ``engine.search`` is the whole call, the samples'
+    int16 casts included; ``engine.launch`` only the class calls, and
+    with ``timed`` also their time on the card."""
+    with span("engine.search"):
+        share_ref = ref is frame
+        frame = _as_samples(frame)
+        ref = frame if share_ref else _as_samples(ref)
+        halo_row = _as_samples(halo_row)
+        if frame.ndim != 3 or tuple(frame.shape[1:]) != (height, width):
+            raise ValueError(f"frames must be [B, {height}, {width}], got "
+                             f"{tuple(frame.shape)}")
+        runs = class_runs(width, height, frame.device)
+        if classes is not None:
+            runs = tuple(runs[i] for i in classes)
+        n_ctu = num_ctus(width, height)[2]
+        outs = [torch.empty((frame.shape[0], n_ctu, PER_CTU),
+                            dtype=torch.int32, device=frame.device)
+                for _ in range(1 if max_performance else 2)]
+        with span("engine.launch", frame.device if timed else None):
+            for run in runs:
+                run.kernel(frame, ref, halo_row, is_top, run.plan, run.table,
+                           run.weights, outs)
+        return outs
 
 
 def _flatten_strided(blocks: dict[int, torch.Tensor]) -> torch.Tensor:
@@ -114,7 +120,7 @@ def _flatten_strided(blocks: dict[int, torch.Tensor]) -> torch.Tensor:
 
 
 def compute_ext(frame, ref, halo_row, is_top: bool, width: int, height: int,
-                max_performance: bool = False):
+                max_performance: bool = False, timed: bool = False):
     """Cost computation against a halo-extended reference slab.
 
     ``frame``: [B, height, width] distortion-target slabs; ``ref``: the
@@ -125,10 +131,11 @@ def compute_ext(frame, ref, halo_row, is_top: bool, width: int, height: int,
     hold the frame's top row.  Returns (sad, satd, min_sad_had), each
     [B, nCTU, 97840]; with ``max_performance`` (the reference's
     MAX_PERFORMANCE_DIST, main_aux_functions.h:1) sad/satd are None and
-    only minSadHad is computed.
+    only minSadHad is computed.  ``timed``: span ``engine.launch`` also
+    times the class calls on the card, with a pair of CUDA events.
     """
     outs = _run_classes(frame, ref, halo_row, is_top, width, height,
-                        max_performance)
+                        max_performance, timed=timed)
     if max_performance:
         return None, None, outs[0]
     sad, satd = outs
@@ -207,7 +214,7 @@ class MipCostEngine:
         self._valid = torch.from_numpy(_validity_mask(width, height)).to(
             device)
 
-    def _costs(self, frames, ref_frames) -> FrameCosts:
+    def _costs(self, frames, ref_frames, timed=False) -> FrameCosts:
         frames = torch.as_tensor(frames, device=self.device)
         if ref_frames is None:
             ref_frames = frames
@@ -215,7 +222,7 @@ class MipCostEngine:
             ref_frames = torch.as_tensor(ref_frames, device=self.device)
         sad, satd, msh = compute_ext(
             frames, ref_frames, ref_frames[:, 0], True, self.width,
-            self.height, max_performance=self.max_performance)
+            self.height, max_performance=self.max_performance, timed=timed)
         return FrameCosts(sad=sad, satd=satd, min_sad_had=msh,
                           valid=self._valid.expand(msh.shape))
 
@@ -235,5 +242,6 @@ class MipCostEngine:
     def compute_batch(self, frames, ref_frames=None) -> FrameCosts:
         """Batched search: [B, H, W] frames in one pass (one kernel launch
         per shape class for the whole batch).  FrameCosts fields gain a
-        leading batch axis."""
-        return self._costs(frames, ref_frames)
+        leading batch axis.  Under a profiler, span ``engine.launch``
+        also holds the class calls' time on the card."""
+        return self._costs(frames, ref_frames, timed=True)

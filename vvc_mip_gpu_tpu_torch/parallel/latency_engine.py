@@ -42,6 +42,7 @@ from vvc_mip_gpu_tpu_torch.parallel.mesh import (
     visible_devices,
 )
 from vvc_mip_gpu_tpu_torch.parallel.sharded_engine import as_frames
+from vvc_mip_gpu_tpu_torch.utils.timing import span
 
 
 def class_weights(width: int, height: int) -> list[float]:
@@ -110,39 +111,46 @@ class LatencyMipCostEngine:
         enqueue every part's class subset on its stream; returns the raw
         per-part block dicts, still on the devices.  Pair with
         :meth:`assemble`; callers that want stage-accurate timing (e.g.
-        the CLI's ENQUEUE/READ split) use the pair."""
-        frame = as_frames(frame)
-        ref_frame = None if ref_frame is None else as_frames(ref_frame)
-        uploaded: dict[torch.device, tuple] = {}
-        outs = []
-        for dev, classes, stream in self._parts:
-            if dev not in uploaded:
-                fd = frame.to(dev)[None]
-                uploaded[dev] = (fd, fd if ref_frame is None
-                                 else ref_frame.to(dev)[None])
-            fd, rd = uploaded[dev]  # rd is fd in the shared regime
-            fork(stream, fd, rd)
-            with on_stream(stream):
-                sad, satd, msh = compute_blocks(
-                    fd, rd, rd[:, 0], True, self.width, self.height,
-                    max_performance=self.max_performance, classes=classes)
-            outs.append((stream, (msh,) if self.max_performance
-                         else (sad, satd)))
-        return outs
+        the CLI's ENQUEUE/READ split) use the pair.  Spans
+        ``latency.dispatch``, and ``latency.upload`` for each device's
+        copies."""
+        with span("latency.dispatch"):
+            frame = as_frames(frame)
+            ref_frame = None if ref_frame is None else as_frames(ref_frame)
+            uploaded: dict[torch.device, tuple] = {}
+            outs = []
+            for dev, classes, stream in self._parts:
+                if dev not in uploaded:
+                    with span("latency.upload"):
+                        fd = frame.to(dev)[None]
+                        uploaded[dev] = (fd, fd if ref_frame is None
+                                         else ref_frame.to(dev)[None])
+                fd, rd = uploaded[dev]  # rd is fd in the shared regime
+                fork(stream, fd, rd)
+                with on_stream(stream):
+                    sad, satd, msh = compute_blocks(
+                        fd, rd, rd[:, 0], True, self.width, self.height,
+                        max_performance=self.max_performance,
+                        classes=classes)
+                outs.append((stream, (msh,) if self.max_performance
+                             else (sad, satd)))
+            return outs
 
     def gather(self, outs) -> list[torch.Tensor]:
         """The device step of :meth:`assemble`: the per-part blocks
         concatenated in the strided layout on the first part's device,
         ``[msh]`` in max-performance runs, else ``[sad, satd]``, each
-        [nCTU, 97840]; the current stream waits for every part."""
-        dev0 = self._parts[0][0]
-        fields: list[dict[int, torch.Tensor]] = [{}, {}]
-        for stream, blocks in outs:
-            for k, bl in enumerate(blocks):
-                join(stream, *bl.values())
-                fields[k].update(bl)
-        return [torch.cat([f[g.index].to(dev0) for g in GROUPS], -1)[0]
-                for f in fields[:len(outs[0][1])]]
+        [nCTU, 97840]; the current stream waits for every part.  Span
+        ``latency.gather``."""
+        with span("latency.gather"):
+            dev0 = self._parts[0][0]
+            fields: list[dict[int, torch.Tensor]] = [{}, {}]
+            for stream, blocks in outs:
+                for k, bl in enumerate(blocks):
+                    join(stream, *bl.values())
+                    fields[k].update(bl)
+            return [torch.cat([f[g.index].to(dev0) for g in GROUPS], -1)[0]
+                    for f in fields[:len(outs[0][1])]]
 
     def finish(self, host: list[torch.Tensor]) -> FrameCosts:
         """The host step of :meth:`assemble`: FrameCosts of the gathered
@@ -157,12 +165,19 @@ class LatencyMipCostEngine:
         return FrameCosts(sad=sad, satd=satd, min_sad_had=msh,
                           valid=self._valid)
 
-    def assemble(self, outs) -> FrameCosts:
+    def assemble(self, outs, read=None) -> FrameCosts:
         """Concatenate the per-part blocks in the strided layout on the
         first part's device, read them back (blocks until every part
         finishes), and in the full report take minSadHad on the host.
-        FrameCosts fields are new host tensors, [nCTU, 97840]."""
-        return self.finish([t.cpu() for t in self.gather(outs)])
+        ``read(*tensors)``: the readback, host arrays or tensors of the
+        gathered fields (e.g. ``ReadbackRing.read``); by default new host
+        tensors.  FrameCosts fields are [nCTU, 97840] host tensors.  Span
+        ``latency.assemble``."""
+        with span("latency.assemble"):
+            fields = self.gather(outs)
+            host = ([t.cpu() for t in fields] if read is None
+                    else [torch.as_tensor(a) for a in read(*fields)])
+            return self.finish(host)
 
     def __call__(self, frame, ref_frame=None) -> FrameCosts:
         return self.assemble(self.dispatch(frame, ref_frame))

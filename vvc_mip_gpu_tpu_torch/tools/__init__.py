@@ -7,5 +7,6 @@ that chip_smoke.py's bounds use), the multi-device scaling report
 golden filters (``profile_cpu_filtering``), the in-context per-class,
 leave-one-out and batch-size profiler of the search
 (``profile_incontext``), the example frame-CSV writer
-(``make_example_frames``) and the decisions-CSV diff without pandas
-(``diff_decisions``)."""
+(``make_example_frames``), the decisions-CSV diff without pandas
+(``diff_decisions``) and the card's idle time in a profile, summed by
+the port's spans (``idle_by_span``)."""

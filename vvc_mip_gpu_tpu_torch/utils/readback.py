@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vvc_mip_gpu_tpu_torch.utils.timing import span
+
 SLOTS = 2
 
 
@@ -44,13 +46,17 @@ class ReadbackRing:
         """Each tensor (None stays None) copied into this read's slot, as
         numpy arrays that alias the slot.  The copies are enqueued on each
         device's current stream, the stream that produced the tensors,
-        and that stream is synchronized before the arrays are returned."""
+        and that stream is synchronized before the arrays are returned.
+        Spans ``readback.read`` and, inside it, ``readback.wait`` (the
+        synchronization)."""
         slot = self._next
         self._next = (slot + 1) % SLOTS
-        bufs = [None if t is None else
-                self._buffer(slot, k, t).copy_(t, non_blocking=True)
-                for k, t in enumerate(tensors)]
-        for dev in {t.device for t in tensors
-                    if t is not None and t.device.type == "cuda"}:
-            torch.cuda.current_stream(dev).synchronize()
+        with span("readback.read"):
+            bufs = [None if t is None else
+                    self._buffer(slot, k, t).copy_(t, non_blocking=True)
+                    for k, t in enumerate(tensors)]
+            with span("readback.wait"):
+                for dev in {t.device for t in tensors
+                            if t is not None and t.device.type == "cuda"}:
+                    torch.cuda.current_stream(dev).synchronize()
         return tuple(None if b is None else b.numpy() for b in bufs)
