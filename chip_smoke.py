@@ -24,11 +24,15 @@ said otherwise:
 - (a) the reduced-prediction kernel against its plain version on the
   reduced boundaries of every class of a noise and a smooth frame, timed
   beside its bound and a cuBLAS fp32 product of the same shapes;
-- (b) the 8 filters x every KernelIdx on the card against the CPU and
-  against the port's NumPy golden filters (golden/filters_golden.py) at
-  1920x1080, on a noise and a smooth frame, timed at batch 16;
+- (b) the 8 filters x every KernelIdx on the card (csrc/mip_filter.cu,
+  one launch a call) against the CPU and against the port's NumPy golden
+  filters (golden/filters_golden.py) at 1920x1080, on a noise and a
+  smooth frame, each variant's kernel timed at batch 16 beside its bound
+  and its plain version;
 - (c) the filtered regime with the full report (SAD, SATD, minSadHad)
-  over 16 frames, against the plain path on frames 0-1, timed;
+  over 16 frames, compute_batch(frames, filter_frames(frames, ...)) with
+  its launches counted from 0 (one filter kernel, 1 / 7 / 9 cost
+  kernels), against the plain path on frames 0-1, timed;
 - (d) the inspect readback on the card (through the reduced-prediction
   kernel) against the host's, for groups of each SizeId, edge CTUs and a
   filtered reference;
@@ -75,7 +79,7 @@ said otherwise:
 - (l) the reference's other three sizes, 416x240, 832x480 and 1280x720
   (partial right CTU columns of 32 and 64 samples, partial bottom rows
   of 112, 96 and 80): (l.1) the 32 filter pairs on the card against the
-  golden filters, on a noise and a smooth frame; (l.2) the main path
+  golden filters, on a noise and a smooth frame, one kernel launch each; (l.2) the main path
   over 16 distinct frames, frames 0-1 against the plain path and frame
   0's minSadHad against the golden model; (l.3) the full report and
   (l.4) the filtered full report (FILTER and a 1-D filter, the golden
@@ -92,7 +96,7 @@ said otherwise:
 - (m) 3840x2160 (17 CTU rows, the last of 112 samples) through every
   entry point, the golden model on a spawned pool for two frames while
   the card works: (m.1) the 32 filter pairs against the golden filters
-  on a noise and a smooth frame; (m.2) the main path over 16 distinct
+  on a noise and a smooth frame, one kernel launch each; (m.2) the main path over 16 distinct
   frames, frames 0-1 against the plain path and frame 0's minSadHad
   against the golden model; (m.3) the full report of the noise frame and
   (m.4) the filtered full report of the CLI's POC 0 (FILTER on the card)
@@ -107,8 +111,9 @@ said otherwise:
   in both regimes, against MipCostEngine; (m.8) the inspect readback at
   the bottom-right, bottom-left and an interior CTU; then, the pool
   gone, (m.9) the main path timed beside its 17 kernels and their
-  bounds, and the port's bench at 4K with --latency and --window
-  reference as child processes;
+  bounds, the filter kernel on a batch of 16 (FILTER) beside its bound
+  and its plain version, and the port's bench at 4K with --latency and
+  --window reference as child processes;
 - (k) the card's costs against the port's own golden cost oracles, on
   valid CUs (the golden model clips out-of-frame CU coordinates, the
   port replicates edges), in int64, each validity mask against the
@@ -168,6 +173,7 @@ ENERGY_FRAMES = 2  # phase (h): the tracer's sweep, 1..ENERGY_FRAMES
 EARLIER_PAGEABLE_READBACK_MS = 27.941
 SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_cost.cu"
 PRED_SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_pred.cu"
+FILTER_SOURCE = "vvc_mip_gpu_tpu_torch/csrc/mip_filter.cu"
 FILTER = ("filterFrame_2d_int_quarterCtu", 2)  # the filtered-regime phases
 CLI_TARGET_CTU = 5
 # phase (l): the reference's other three frame sizes (constants.py
@@ -446,7 +452,12 @@ def filters_differ(host: np.ndarray, dev: torch.device,
     bad, futures = [], {}
     with ThreadPoolExecutor(host_cpus()) as pool:
         for ftype, kidx in filter_pairs():
+            before = filter_frames.launches
             got = filter_frames(card, ftype, kidx).cpu()
+            if filter_frames.launches != before + 1:
+                bad.append(f"{ftype}[{kidx}]: "
+                           f"{filter_frames.launches - before} kernel "
+                           f"launches, want 1")
             if against_cpu and not torch.equal(
                     got, filter_frames(cpu, ftype, kidx)):
                 bad.append(f"{ftype}[{kidx}] vs the CPU")
@@ -458,14 +469,48 @@ def filters_differ(host: np.ndarray, dev: torch.device,
     return bad
 
 
-def phase_filters(batch: torch.Tensor, failures) -> None:
+def filter_timings(frames: torch.Tensor, pair: tuple[str, int],
+                   int_rate: float, card: str, label: str) -> dict:
+    """The filter kernel on the int32 [N, H, W] ``frames`` under ``pair``
+    (CUDA events) beside its bound (a multiply and an add per tap, a
+    rounding add and a division per sample; the int32 batch read once
+    and the int32 result written once) and its plain version's ms on the
+    card, and its output on ``frames`` against the plain version's.
+    Returns {"ms", "plain_ms", "bound_ms", "bound_by", "bit_exact"}."""
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+    from vvc_mip_gpu_tpu_torch.tools import roofline
+
+    ftype, kidx = pair
+    k = 5 if "5x5" in ftype else 3
+    taps = k * k if "2d" in ftype else 2 * k
+    samples = frames.numel()
+    bound_ms, bound_by = roofline.bound(samples * (2 * taps + 2),
+                                        samples * 8, int_rate)
+    ms = Timer(lambda: filter_frames(frames, ftype, kidx), TIMED_ITERS).ms
+    plain_ms = Timer(lambda: filter_frames.plain(frames, ftype, kidx), 3).ms
+    exact = torch.equal(filter_frames(frames, ftype, kidx),
+                        filter_frames.plain(frames, ftype, kidx))
+    t = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by, "bit_exact": exact}
+    n, h, w = frames.shape
+    print(f"({label}) filter {ftype}[{kidx}] {w}x{h} batch {n}: kernel "
+          f"{ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f} %), "
+          f"plain {plain_ms:.3f} ms, "
+          f"{'bit-exact' if exact else 'DIFFERS from'} the plain version "
+          f"({card})", flush=True)
+    return t
+
+
+def phase_filters(batch: torch.Tensor, int_rate: float, card: str,
+                  failures) -> dict:
     """(b) filter_frames on the card against the CPU and against the
     port's NumPy golden filters, all 8 variants x every KernelIdx, on a
-    noise and a smooth frame; then each variant's time on the batch
-    (KernelIdx 2)."""
+    noise and a smooth frame, one kernel launch a call; then each
+    variant's kernel on the batch (KernelIdx 2) beside its bound and its
+    plain version (filter_timings).  Returns FILTER's timings."""
     from vvc_mip_gpu_tpu_torch.constants import AVAILABLE_FILTERS
     from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
-    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
 
     rng = np.random.default_rng(3)
     host = np.stack([rng.integers(0, 1024, (MAIN_H, MAIN_W)),
@@ -479,15 +524,19 @@ def phase_filters(batch: torch.Tensor, failures) -> None:
           f"card vs CPU and vs the NumPy golden filters: "
           f"{'bit-exact' if not bad else 'DIFFER ' + str(bad)} "
           f"({time.perf_counter() - t0:.1f} s)")
-    for ftype in AVAILABLE_FILTERS:
-        ms = Timer(lambda: filter_frames(batch, ftype, 2), 5).ms
-        print(f"filter {ftype}[2]: {ms:.3f} ms per batch of "
-              f"{batch.shape[0]}", flush=True)
+    times = {ftype: filter_timings(batch, (ftype, 2), int_rate, card, "b")
+             for ftype in AVAILABLE_FILTERS}
+    differ = [f for f, t in times.items() if not t["bit_exact"]]
+    if differ:
+        failures.append(f"filter timings (b): {differ} differ from the "
+                        f"plain version")
+    return times[FILTER[0]]
 
 
-def phase_filtered_full(frames: torch.Tensor, failures) -> None:
+def phase_filtered_full(frames: torch.Tensor, failures) -> int:
     """(c) the filtered regime with the full report, driven through the
-    entry points: compute_batch(frames, filter_frames(frames, ...))."""
+    entry points: compute_batch(frames, filter_frames(frames, ...)).
+    Returns the filter kernel's launches in that run."""
     from vvc_mip_gpu_tpu_torch.constants import num_ctus
     from vvc_mip_gpu_tpu_torch.models.cost_engine import (
         PER_CTU, MipCostEngine)
@@ -498,18 +547,23 @@ def phase_filtered_full(frames: torch.Tensor, failures) -> None:
     torch.cuda.synchronize()
     for k in KERNELS:
         k.launches = 0
+    filter_frames.launches = 0
     refs = filter_frames(frames, *FILTER)
     costs = engine.compute_batch(frames, refs)
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in KERNELS}
-    print(f"filtered full-report path launches: {launches}")
-    if list(launches.values()) != [1, 7, 9]:
-        failures.append(f"filtered path launches {launches}, want 1/7/9")
+    filter_launches = filter_frames.launches
+    print(f"filtered full-report path launches: {launches}, "
+          f"{filter_frames.name} {filter_launches}")
+    if list(launches.values()) != [1, 7, 9] or filter_launches != 1:
+        failures.append(f"filtered path launches {launches}, "
+                        f"{filter_frames.name} {filter_launches}, want "
+                        f"1/7/9 and 1")
     shape = (frames.shape[0], num_ctus(MAIN_W, MAIN_H)[2], PER_CTU)
     if any(t is None or tuple(t.shape) != shape or t.dtype != torch.int32
            for t in (costs.sad, costs.satd, costs.min_sad_had)):
         failures.append("filtered path: cost tensors of the wrong shape")
-        return
+        return filter_launches
     plain = plain_costs(frames[:2].to(torch.int16).contiguous(),
                         refs[:2].to(torch.int16).contiguous(), MAIN_W,
                         MAIN_H, 2)
@@ -532,6 +586,7 @@ def phase_filtered_full(frames: torch.Tensor, failures) -> None:
     print(f"filtered full report: {both:.3f} ms per batch of {b} "
           f"({both / b:.4f} ms/frame, {b * 1e3 / both:.2f} frames/s); "
           f"filter {filt:.3f} ms, search {search:.3f} ms", flush=True)
+    return filter_launches
 
 
 def phase_inspect(failures) -> int:
@@ -686,12 +741,16 @@ def phase_cli(card: str, tmp: str, failures) -> list[str]:
 
 def count_launches(fn):
     """(fn's result, [launches of mip_cost_sid0, 1, 2] during fn): the
-    counters set to 0 just before, read just after a synchronize."""
+    counters set to 0 just before, read just after a synchronize.  The
+    filter kernel's counter is set to 0 too: ``filter_frames.launches``
+    afterwards is its launches during fn."""
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
     from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
 
     torch.cuda.synchronize()
     for k in KERNELS:
         k.launches = 0
+    filter_frames.launches = 0
     out = fn()
     torch.cuda.synchronize()
     return out, [k.launches for k in KERNELS]
@@ -1473,10 +1532,12 @@ def reference_card(width: int, height: int, frames: np.ndarray,
     MipCostEngine(max_performance=True).compute_batch over the 16 distinct
     ``frames``, frames 0-1 whole against the plain path; the full report
     of frame 0; the filtered full report of ``filtered`` (default
-    ``smooth``) for each of ``filters``, filtered on the card, whole
-    against the plain path.  Each path's launches held to 1 / 7 / 9.
-    Returns ({path: FrameCosts} for the golden model's comparison, what
-    failed)."""
+    ``smooth``) for each of ``filters``, compute_batch(frame,
+    filter_frames(frame, ...)), whole against the plain path.  Each
+    path's launches held to 1 / 7 / 9, and each filtered path's filter
+    kernel launches to 1.  Returns ({path: FrameCosts} for the golden
+    model's comparison, what failed, {filter pair: its filtered path's
+    filter kernel launches})."""
     from vvc_mip_gpu_tpu_torch.models.cost_engine import (
         FrameCosts, MipCostEngine)
     from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
@@ -1503,22 +1564,33 @@ def reference_card(width: int, height: int, frames: np.ndarray,
                    f"path")
     del card, f16
     costs, counts = {"main": main}, {"main": launches}
-    runs = {"full": (torch.from_numpy(frames[:1]).to(dev), None)}
+    full_card = torch.from_numpy(frames[:1]).to(dev)
+    costs["full"], counts["full"] = count_launches(
+        lambda: MipCostEngine(width, height).compute_batch(full_card))
     filtered_card = torch.from_numpy((smooth if filtered is None else
                                       filtered).astype(np.int32))[None].to(
         dev)
+    refs, filter_counts = {}, {}
     for pair in filters:
-        runs[pair] = (filtered_card, filter_frames(filtered_card, *pair))
-    for name, (fr, ref) in runs.items():
-        costs[name], counts[name] = count_launches(
-            lambda: MipCostEngine(width, height).compute_batch(fr, ref))
+        def filtered_path(pair=pair):
+            refs[pair] = filter_frames(filtered_card, *pair)
+            return MipCostEngine(width, height).compute_batch(
+                filtered_card, refs[pair])
+        costs[pair], counts[pair] = count_launches(filtered_path)
+        filter_counts[pair] = filter_frames.launches
     bad += [f"{size} {name} launches {n}, want [1, 7, 9]"
             for name, n in counts.items() if n != [1, 7, 9]]
+    bad += [f"({phase}.4) {size} {pair[0]}[{pair[1]}] {filter_frames.name} "
+            f"launches {n}, want 1"
+            for pair, n in filter_counts.items() if n != 1]
     print(f"({phase}) {size} launches: " + ", ".join(
-        f"{name} {n}" for name, n in counts.items()), flush=True)
+        f"{name} {n}" for name, n in counts.items()) + "; "
+        f"{filter_frames.name} " + ", ".join(
+        f"{pair[0]}[{pair[1]}] {n}" for pair, n in filter_counts.items()),
+        flush=True)
     for pair in filters:
-        fr, ref = runs[pair]
-        sad, satd = plain_costs(fr.to(torch.int16).contiguous(),
+        ref = refs[pair]
+        sad, satd = plain_costs(filtered_card.to(torch.int16).contiguous(),
                                 ref.to(torch.int16).contiguous(), width,
                                 height, 2)
         want = FrameCosts(sad, satd, torch.minimum(2 * sad, satd), None)
@@ -1530,7 +1602,7 @@ def reference_card(width: int, height: int, frames: np.ndarray,
               f"{'bit-exact' if not diff else diff}", flush=True)
         bad += [f"({phase}.4) {size} {pair[0]}[{pair[1]}] vs the plain "
                 f"path: {d}" for d in diff]
-    return costs, bad
+    return costs, bad, filter_counts
 
 
 def cli_against_card(width: int, height: int, target_ctu: int, chunks: int,
@@ -1766,8 +1838,8 @@ def phase_reference(tmp: str, dev: torch.device, card: str,
         # the card meanwhile
         card_costs = {}
         for (w, h), (frames, smooth) in inputs.items():
-            card_costs[w, h], more = reference_card(w, h, frames, smooth,
-                                                    dev)
+            card_costs[w, h], more, _ = reference_card(w, h, frames,
+                                                       smooth, dev)
             bad += more
         cli, more = reference_cli(tmp, card)
         bad += more
@@ -1956,9 +2028,9 @@ def phase_uhd_entry_points(tmp: str, dev: torch.device, card: str,
                    "cli": golden_futures(pool, cli0,
                                          filter_frame(cli0, *FILTER), done)}
         # the card meanwhile
-        costs, more = reference_card(UHD_W, UHD_H, frames, smooth, dev,
-                                     filtered=cli0, filters=(FILTER,),
-                                     phase="m")
+        costs, more, filter_counts = reference_card(
+            UHD_W, UHD_H, frames, smooth, dev, filtered=cli0,
+            filters=(FILTER,), phase="m")
         bad += more
         prefix = None
         if free < need:
@@ -2019,13 +2091,21 @@ def phase_uhd_entry_points(tmp: str, dev: torch.device, card: str,
     times = {(UHD_W, UHD_H, MAIN_BATCH): size_timings(
         UHD_W, UHD_H, MAIN_BATCH, dev, int_rate, card, bad, "m.9")}
     torch.cuda.empty_cache()
+    filt = filter_timings(torch.from_numpy(np.random.default_rng(61).integers(
+        0, 1024, (MAIN_BATCH, UHD_H, UHD_W), dtype=np.int32)).to(dev),
+        FILTER, int_rate, card, "m.9")
+    filt["launches"] = filter_counts[FILTER]  # (m.4)'s filtered path
+    if not filt["bit_exact"]:
+        bad.append("filter (m.9) differs from the plain version")
+    torch.cuda.empty_cache()
     for extra in UHD_BENCH_RUNS:
         bench_against_kernels(extra, times, card, bad)
     if bad:
         failures.append(f"{size} (m): {bad}")
     wall = time.perf_counter() - t_phase
     print(f"phase (m): {wall:.1f} s ({card})", flush=True)
-    return {"times": times, "golden_s": golden_s, "phase_s": wall}
+    return {"times": times, "golden_s": golden_s, "phase_s": wall,
+            "filter": filt}
 
 
 def phase_golden(frames: torch.Tensor, main_costs, card: str,
@@ -2156,6 +2236,7 @@ def main() -> int:
     from vvc_mip_gpu_tpu_torch.models.cost_engine import (
         PER_CTU, MipCostEngine, class_runs, compute_ext)
     from vvc_mip_gpu_tpu_torch.ops import _build
+    from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
     from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
     from vvc_mip_gpu_tpu_torch.ops.pred import mip_reduced_pred
     from vvc_mip_gpu_tpu_torch.tools import roofline
@@ -2358,8 +2439,8 @@ def main() -> int:
     smooth16 = torch.from_numpy(synthetic_frames(
         1, MAIN_W, MAIN_H, seed=5)[0].astype(np.int16)).to(dev)
     pred = phase_pred(noise16, smooth16, int_rate, failures)
-    phase_filters(frames, failures)
-    phase_filtered_full(frames, failures)
+    filt = phase_filters(frames, int_rate, card, failures)
+    filt["launches"] = phase_filtered_full(frames, failures)
     pred_launches = phase_inspect(failures)
     with tempfile.TemporaryDirectory() as tmp:
         cli_args = phase_cli(card, tmp, failures)
@@ -2449,6 +2530,15 @@ def main() -> int:
         "sizeid_ms": pred["sizeid_ms"],
         "cublas_fp32_product_ms": round(pred["cublas"], 4),
         "shape": f"all CUs of one {MAIN_W}x{MAIN_H} frame, SizeId 0-2"})
+    for shape, t in ((f"{MAIN_BATCH}x{MAIN_W}x{MAIN_H}", filt),
+                     (f"{MAIN_BATCH}x{UHD_W}x{UHD_H}", uhd["filter"])):
+        rows.append({
+            "name": "mip_filter", "route": "cuda", "source": FILTER_SOURCE,
+            "replaces": filter_frames.replaces, "launches": t["launches"],
+            "ms": round(t["ms"], 4), "plain_ms": round(t["plain_ms"], 3),
+            "bound_ms": round(t["bound_ms"], 4), "bound_by": t["bound_by"],
+            "library_ms": None, "bit_exact": t["bit_exact"],
+            "shape": f"{shape} {FILTER[0]}[{FILTER[1]}]"})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -90,3 +90,45 @@ def test_invalid_args():
         tf.filter_frames(frame, "filterFrame_1d_int")
     with pytest.raises(ValueError, match=r"\[H, W\]"):
         tf.filter_frame(frame[None], "filterFrame_1d_int")
+
+
+def test_cpu_runs_the_plain_version_and_launches_nothing(monkeypatch):
+    """On CPU tensors ``filter_frames`` is the plain version: no kernel
+    library is loaded and the launch counter stands still."""
+    def no_kernel():
+        raise AssertionError("the kernel's library was loaded")
+
+    monkeypatch.setattr(tf, "_launcher", no_kernel)
+    frames = torch.from_numpy(_frames().astype(np.int32))
+    before = tf.filter_frames.launches
+    for ftype in ("filterFrame_2d_int_quarterCtu", "filterFrame_1d_float"):
+        assert torch.equal(tf.filter_frames(frames, ftype, 2),
+                           tf.filter_frames_plain(frames, ftype, 2))
+    assert tf.filter_frames.launches == before
+    assert tf.filter_frames.plain is tf.filter_frames_plain
+    with pytest.raises(ValueError, match="no kernel"):
+        tf.filter_frames(frames.to("meta"), "filterFrame_1d_int")
+    assert tf.filter_frames.launches == before
+
+
+@pytest.mark.parametrize("ftype", AVAILABLE_FILTERS)
+def test_launch_tables_match_the_divisor_planes(ftype):
+    """The kernel's divisor table, looked up by the in-frame taps on each
+    side, gives ``_plan``'s divisor plane, frames smaller than the kernel
+    included; its taps are ``_plan``'s."""
+    for kidx in _kernel_indices(ftype):
+        k, separable, as_float, taps, scales = tf.launch_tables(ftype, kidx)
+        r = k // 2
+        table = scales.reshape((r + 1,) * 4)
+        assert (separable, as_float) == ("1d" in ftype, "float" in ftype)
+        for h, w in ((1, 1), (2, 3), (4, 4), (3, 6), (5, 2), (9, 11)):
+            plan_taps, plane = tf._plan(ftype, kidx, h, w)
+            y = np.arange(h)[:, None]
+            x = np.arange(w)[None, :]
+            got = table[np.minimum(r, y), np.minimum(r, h - 1 - y),
+                        np.minimum(r, x), np.minimum(r, w - 1 - x)]
+            np.testing.assert_array_equal(got, plane,
+                                          err_msg=f"{ftype}[{kidx}] {h}x{w}")
+            want = ([c for _, _, c in plan_taps] if "2d" in ftype
+                    else list(plan_taps))
+            assert taps.tolist() == want

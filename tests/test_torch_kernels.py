@@ -13,7 +13,11 @@ right and bottom CTUs), in both output regimes, again on saturated
 frames (all 1023, all 0, a 0/1023 checkerboard), and with misaligned
 frames and outputs (the kernels' scalar loads and stores); so is the
 reduced-prediction kernel for each SizeId, the inspect readback on the
-card against the host's, and the filters on the card against the CPU.
+card against the host's, and the filter kernel on the card against its
+plain version on the CPU (every variant and KernelIdx, one launch a call;
+frames smaller than the kernel, saturated, of a ragged size, int16 (cast
+to int32 by the wrapper), negative samples, a non-contiguous slice, and a
+3840x2160 batch).
 The multi-device engines run the kernels on one card under a (2, 2) mesh
 (four shards, four streams, real halo rows between bands) and as a
 4-part latency engine (four class subsets on four streams), each against
@@ -211,10 +215,71 @@ def test_filters_on_the_card_match_the_cpu(ftype):
                            np.int32)
     cpu = torch.from_numpy(frames)
     for kidx in range(3 if "5x5" in ftype else 5):
+        before = filter_frames.launches
         got = filter_frames(cpu.cuda(), ftype, kidx)
+        assert filter_frames.launches == before + 1
         assert got.device.type == "cuda"
         assert torch.equal(got.cpu(), filter_frames(cpu, ftype, kidx)), (
             f"{ftype}[{kidx}]")
+
+
+def _filter_case(case: str) -> list[torch.Tensor]:
+    """The frames of one edge case of the filter kernel, on the card."""
+    rng = np.random.default_rng(11)
+    if case == "smaller than the kernel":
+        return [torch.from_numpy(rng.integers(0, 1024, (2, h, w)).astype(
+            np.int32)).cuda() for h, w in ((1, 1), (2, 3), (4, 4))]
+    if case == "saturated":
+        check = (np.indices((67, 90)).sum(0) % 2) * 1023
+        return [torch.from_numpy(np.stack([np.full((67, 90), 1023), check,
+                                           np.zeros((67, 90))]).astype(
+            np.int32)).cuda()]
+    noise = rng.integers(0, 1024, (3, 131, 197))
+    if case == "ragged":  # no multiple of the tile or vector width
+        return [torch.from_numpy(noise.astype(np.int32)).cuda()]
+    if case == "int16":  # cast to int32 by the wrapper
+        return [torch.from_numpy(noise.astype(np.int16)).cuda(),
+                torch.from_numpy(noise[:, :, :196].astype(np.int16)).cuda()]
+    if case == "negative":  # the floor division's negative numerators
+        signed = rng.integers(-1024, 1024, (3, 131, 196))
+        return [torch.from_numpy(signed.astype(np.int32)).cuda(),
+                torch.from_numpy(signed[:2, 7:, :131].astype(np.int16)).cuda()]
+    pool = torch.from_numpy(rng.integers(0, 1024, (6, 140, 264)).astype(
+        np.int32)).cuda()
+    return [pool[1::2, 3:, 5:261]]  # a non-contiguous slice of a pool
+
+
+@pytest.mark.parametrize("case", ["smaller than the kernel", "saturated",
+                                  "ragged", "int16", "negative",
+                                  "pool slice"])
+@pytest.mark.parametrize("ftype", AVAILABLE_FILTERS)
+def test_filter_kernel_edge_cases(ftype, case):
+    """Each variant and KernelIdx on the card, one launch a call, against
+    the plain version on the CPU, bit for bit."""
+    for frames in _filter_case(case):
+        cpu = frames.cpu().to(torch.int32)
+        for kidx in range(3 if "5x5" in ftype else 5):
+            before = filter_frames.launches
+            got = filter_frames(frames, ftype, kidx)
+            assert filter_frames.launches == before + 1
+            assert got.dtype == torch.int32 and got.shape == frames.shape
+            want = filter_frames.plain(cpu, ftype, kidx)
+            assert torch.equal(got.cpu(), want), (
+                f"{ftype}[{kidx}] {case} {tuple(frames.shape)}: "
+                f"{int((got.cpu() != want).sum())} samples differ")
+
+
+def test_filter_kernel_3840x2160():
+    """One 3840x2160 batch of 2 under the benchmark's filter."""
+    frames = np.stack([
+        np.random.default_rng(12).integers(0, 1024, (2160, 3840)),
+        synthetic_frames(1, 3840, 2160, seed=12)[0]]).astype(np.int32)
+    cpu = torch.from_numpy(frames)
+    before = filter_frames.launches
+    got = filter_frames(cpu.cuda(), "filterFrame_2d_int_quarterCtu", 2)
+    assert filter_frames.launches == before + 1
+    assert torch.equal(got.cpu(), filter_frames.plain(
+        cpu, "filterFrame_2d_int_quarterCtu", 2))
 
 
 def _regime_inputs(regime, n, width, height, seed):

@@ -212,7 +212,7 @@ def test_library_names_follow_each_source_headers_and_flags(monkeypatch,
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     names = {n: _build.library_path(n).name for n in _build.LIBRARIES}
-    assert sorted(names) == ["mip_cost", "mip_pred"]
+    assert sorted(names) == ["mip_cost", "mip_filter", "mip_pred"]
     for name, lib in names.items():
         assert lib.startswith(f"{name}_") and lib.endswith(".so")
     (csrc / "mip_pred.cu").write_text(

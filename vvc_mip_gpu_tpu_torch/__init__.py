@@ -9,7 +9,8 @@ filtered reference samples; the decisions-CSV export, the CLI
 Each shape class runs through a hand-written CUDA kernel
 (csrc/mip_cost.cu) on the GPU, or through the kernels' plain PyTorch
 versions on the CPU; the inspect readback's reduced prediction runs
-through csrc/mip_pred.cu.
+through csrc/mip_pred.cu and the low-pass filters through
+csrc/mip_filter.cu.
 """
 
 __version__ = "0.2.0"

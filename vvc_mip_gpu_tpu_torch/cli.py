@@ -360,10 +360,10 @@ def _run_distributed(cfg: EngineConfig, synthetic: bool, resume: bool,
     dist.initialize(cfg.coordinator, cfg.num_processes, cfg.process_id)
     try:
         if devices[0].type == "cuda":
-            # Process 0 builds the kernel library; the others wait and load
-            # it, rather than each running nvcc on a cold checkout.
+            # Process 0 builds the kernel libraries; the others wait and
+            # load them, rather than each running nvcc on a cold checkout.
             if cfg.process_id == 0:
-                build_libraries(("mip_cost",))
+                build_libraries()
             dist.barrier()
         timer = StageTimer(trace_power=cfg.trace_power, device=devices[0])
         mesh = dist.make_global_mesh(cfg.mesh_space, devices)

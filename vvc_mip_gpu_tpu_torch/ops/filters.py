@@ -14,17 +14,27 @@ golden model (reference: README.md:20-64, kernels intra.cl:1175-3824):
 * int variants: ``(acc + scale // 2) // scale``, floor division.
 * float variants: ``floor(acc / scale + 0.5)`` in float32.
 
-Frames are shifted and accumulated tap by tap, in the JAX version's tap
-order, in int32 (float32 for the float variants) on the frames' own device;
-the divisor planes are built once with numpy.  No convolution operator is
-used: cuDNN may run a float32 convolution in TF32, which would change the
-float variants' results.  Every float accumulation here is exact (integer
-coefficients and samples, sums < 2^24), so only the final division rounds.
+``filter_frames`` on a CUDA tensor launches the hand-written kernel
+(``csrc/mip_filter.cu``): one launch filters the whole batch, on the
+current stream, and adds one to ``filter_frames.launches``.  On a CPU
+tensor it runs the plain version, ``filter_frames_plain``; it never falls
+back from one to the other.
+
+The plain version shifts and accumulates the frames tap by tap, in the
+JAX version's tap order, in int32 (float32 for the float variants) on the
+frames' own device; the divisor planes are built once with numpy.  No
+convolution operator is used: cuDNN may run a float32 convolution in
+TF32, which would change the float variants' results.  Every float
+accumulation here is exact (integer coefficients and samples, sums <
+2^24), so only the final division rounds.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import functools
+import itertools
 
 import numpy as np
 import torch
@@ -35,7 +45,16 @@ from vvc_mip_gpu_tpu_torch.constants import (
     CONV_KERNELS_3x3,
     CONV_KERNELS_5x5,
 )
+from vvc_mip_gpu_tpu_torch.ops import _build
 from vvc_mip_gpu_tpu_torch.utils.timing import span
+
+_LAUNCH_ARGTYPES = (
+    ctypes.c_void_p,  # frames (int32)
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, h, w
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # k, separable, as_float
+    ctypes.c_void_p, ctypes.c_void_p,  # taps, scales (host int32)
+    ctypes.c_void_p, ctypes.c_void_p,  # out, stream
+)
 
 
 def _shifted_np(plane: np.ndarray, dy: int, dx: int) -> np.ndarray:
@@ -150,17 +169,20 @@ def _window(padded: torch.Tensor, r: int, dy: int, dx: int, h: int, w: int):
     return padded[..., r + dy:r + dy + h, r + dx:r + dx + w]
 
 
-def filter_frames(frames, filter_type: str,
-                  kernel_idx: int = 0) -> torch.Tensor:
-    """Apply one of the 8 filter variants to [N, H, W] 10-bit frames.
-    Returns [N, H, W] int32 on the frames' device (a numpy input lands on
-    the CPU).  Reference equivalent: the filterFrame_* enqueue loop,
-    main.cpp:684-791.  Span ``filter``."""
+def _checked(frames, filter_type: str, kernel_idx: int) -> torch.Tensor:
     _check_args(filter_type, kernel_idx)
     frames = torch.as_tensor(frames)
     if frames.ndim != 3:
         raise ValueError(f"frames must be [N, H, W], got "
                          f"{tuple(frames.shape)}")
+    return frames
+
+
+def filter_frames_plain(frames, filter_type: str,
+                        kernel_idx: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (any device): ``filter_frames``'
+    contract.  Span ``filter``."""
+    frames = _checked(frames, filter_type, kernel_idx)
     with span("filter"):
         return _filter(frames, filter_type, kernel_idx)
 
@@ -191,6 +213,105 @@ def _filter(frames: torch.Tensor, filter_type: str,
     if dtype == torch.float32:
         return torch.floor(acc / scale + 0.5).to(torch.int32)
     return torch.div(acc + scale // 2, scale, rounding_mode="floor")
+
+
+def _integers(values) -> np.ndarray:
+    out = np.asarray(values).astype(np.int32)
+    if not np.array_equal(out, values):
+        raise ValueError(f"not integers: {values}")
+    out.flags.writeable = False  # cached and shared
+    return out
+
+
+@functools.cache
+def launch_tables(filter_type: str, kernel_idx: int):
+    """The kernel's description of one variant: (k, separable, as_float,
+    taps, scales).  ``taps``: int32, the 2d kernel in raster order or the
+    1d row; ``scales``: int32 [(r+1)^4], the divisor by the number of
+    taps inside the frame above, below, left and right of a sample
+    (``up = min(r, y)``, ``down = min(r, h-1-y)``, ``left = min(r, x)``,
+    ``right = min(r, w-1-x)``), raster over (up, down, left, right).  Each
+    is read off ``_plan``'s divisor plane of the smallest frame that has
+    that class, (up + down + 1) x (left + right + 1), at (up, left)."""
+    _check_args(filter_type, kernel_idx)
+    k = 5 if "5x5" in filter_type else 3
+    r = k // 2
+    taps, _ = _plan(filter_type, kernel_idx, 1, 1)
+    taps = _integers([c for _, _, c in taps] if "2d" in filter_type
+                     else list(taps))
+    scales = np.empty((r + 1,) * 4, np.int32)
+    for up, down, left, right in itertools.product(range(r + 1), repeat=4):
+        plane = _plan(filter_type, kernel_idx, up + down + 1,
+                      left + right + 1)[1]
+        scales[up, down, left, right] = _integers(plane[up, left])
+    scales.flags.writeable = False
+    return (k, "1d" in filter_type, "float" in filter_type, taps,
+            scales.ravel())
+
+
+@dataclasses.dataclass(eq=False)
+class FilterKernel:
+    """The hand-written CUDA filter kernel (every variant, one launch a
+    batch) with its launch counter and plain version."""
+
+    name: str
+    replaces: str  # the TPU kernel whose work it does: none
+    launches: int = 0
+    plain = staticmethod(filter_frames_plain)
+
+    def __call__(self, frames, filter_type: str,
+                 kernel_idx: int = 0) -> torch.Tensor:
+        """Apply one of the 8 filter variants to [N, H, W] 10-bit frames.
+        Returns [N, H, W] int32 on the frames' device (a numpy input lands
+        on the CPU).  Reference equivalent: the filterFrame_* enqueue
+        loop, main.cpp:684-791.  On the card the kernel reads int32: other
+        integer types are cast to int32 first (floating ones are refused)
+        and the frames are made contiguous.  Span ``filter``."""
+        frames = _checked(frames, filter_type, kernel_idx)
+        if frames.device.type == "cpu":
+            return filter_frames_plain(frames, filter_type, kernel_idx)
+        if frames.device.type != "cuda":
+            raise ValueError(f"{self.name}: no kernel for {frames.device}")
+        with span("filter"):
+            return self._launch(frames, filter_type, kernel_idx)
+
+    def _launch(self, frames: torch.Tensor, filter_type: str,
+                kernel_idx: int) -> torch.Tensor:
+        if frames.is_floating_point() or frames.is_complex():
+            raise ValueError(f"{self.name}: frames must hold integer "
+                             f"samples, got {frames.dtype}")
+        frames = frames.to(torch.int32).contiguous()
+        n, h, w = frames.shape
+        out = torch.empty((n, h, w), dtype=torch.int32, device=frames.device)
+        if out.numel() == 0:
+            return out  # nothing to launch (a 0-sized grid fails)
+        k, separable, as_float, taps, scales = launch_tables(filter_type,
+                                                             kernel_idx)
+        with torch.cuda.device(frames.device):
+            stream = torch.cuda.current_stream(frames.device).cuda_stream
+            err = _launcher()(frames.data_ptr(), n, h, w, k,
+                              int(separable), int(as_float),
+                              taps.ctypes.data, scales.ctypes.data,
+                              out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} {filter_type}[{kernel_idx}]: "
+                               f"CUDA launch failed with error {err}")
+        self.launches += 1
+        return out
+
+
+@functools.cache
+def _launcher():
+    fn = _build.load_library("mip_filter").mip_filter
+    fn.argtypes = _LAUNCH_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+filter_frames = FilterKernel(
+    "mip_filter",
+    "none: the JAX package's filter (vvc_mip_gpu_tpu/ops/filters.py "
+    "filter_frames) is jnp code, no pl.pallas_call")
 
 
 def filter_frame(frame, filter_type: str, kernel_idx: int = 0):
