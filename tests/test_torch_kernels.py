@@ -21,7 +21,10 @@ to int32 by the wrapper), negative samples, a non-contiguous slice, and a
 The multi-device engines run the kernels on one card under a (2, 2) mesh
 (four shards, four streams, real halo rows between bands) and as a
 4-part latency engine (four class subsets on four streams), each against
-MipCostEngine, with their launch counts.
+MipCostEngine, with their launch counts.  The full report at 1920x1080
+through ``compute_batch`` launches what the max-performance regime
+launches, times its minSadHad combine on the card and equals the plain
+path.
 """
 
 import numpy as np
@@ -363,3 +366,53 @@ def test_readback_ring_pins_and_reuses_on_the_card():
     np.testing.assert_array_equal(third, (a + 5).cpu().numpy())
     np.testing.assert_array_equal(first, third)  # slot 0 again
     assert all(buf.is_pinned() for buf in ring._buffers.values())
+
+
+def test_full_report_at_1920x1080():
+    """The full report (SAD, SATD, minSadHad) through ``compute_batch`` at
+    1920x1080, batch 2: the same 17 launches as the max-performance
+    regime, span ``engine.combine`` timed on the card, and the three
+    planes equal to the plain path's, whole (the CTUs drawn from the seed
+    included), with minSadHad min(2 SAD, SATD) of the plain planes."""
+    from vvc_mip_gpu_tpu_torch.utils import timing
+
+    width, height = 1920, 1080
+    frames = torch.from_numpy(synthetic_frames(2, width, height, seed=20)
+                              .astype(np.int32)).cuda()
+    launches, costs = {}, None
+    for max_performance in (True, False):
+        engine = tce.MipCostEngine(width, height,
+                                   max_performance=max_performance)
+        engine.compute_batch(frames)  # builds and loads the kernels
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            k.launches = 0
+        timing.clear()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]):
+            costs = engine.compute_batch(frames)
+            torch.cuda.synchronize()
+        launches[max_performance] = sum(k.launches for k in KERNELS)
+        combine = timing.device_ms("engine.combine")
+        if max_performance:
+            assert combine == [] and costs.sad is None
+        else:
+            assert len(combine) == 1 and combine[0] > 0
+        timing.clear()
+    assert launches == {True: 17, False: 17}
+
+    samples = frames.to(torch.int16)
+    n_ctu = num_ctus(width, height)[2]
+    plain = [torch.full((2, n_ctu, tce.PER_CTU), -1, dtype=torch.int32,
+                        device="cuda") for _ in range(2)]
+    for run in tce.class_runs(width, height, samples.device):
+        run.kernel.plain(samples, samples, samples[:, 0].contiguous(), True,
+                         run.plan, run.table, run.weights, plain)
+    want = (*plain, torch.minimum(2 * plain[0], plain[1]))
+    ctus = np.random.default_rng(2**31 + 20).choice(n_ctu, 2, replace=False)
+    for name, got, w in zip(("sad", "satd", "min_sad_had"),
+                            (costs.sad, costs.satd, costs.min_sad_had), want):
+        assert torch.equal(got[:, ctus], w[:, ctus]), name
+        assert torch.equal(got, w), (
+            f"{name}: {int((got != w).sum())} entries differ")

@@ -78,6 +78,32 @@ def test_engine_spans_under_profiler():
     assert {"vvc_mip.engine.search", "vvc_mip.engine.launch"} <= names
 
 
+@pytest.mark.parametrize("max_performance", [False, True])
+def test_combine_span(max_performance):
+    """The full report's minSadHad combine is span ``engine.combine``, once
+    a call, after ``engine.search`` has closed, with no card time on the
+    CPU; the max-performance regime has no combine and records none."""
+    engine = MipCostEngine(256, 136, max_performance=max_performance,
+                           device="cpu")
+    frames = torch.from_numpy(np.random.default_rng(11).integers(
+        0, 1024, (2, 136, 256), dtype=np.int32))
+    with _profiled() as prof:
+        costs = engine.compute_batch(frames)
+    combines = timing.spans("engine.combine")
+    names = {e.name for e in prof.events()}
+    if max_performance:
+        assert combines == [] and "vvc_mip.engine.combine" not in names
+        assert costs.sad is None and costs.satd is None
+        return
+    (search,) = timing.spans("engine.search")
+    (combine,) = combines
+    assert search.end_ns <= combine.start_ns <= combine.end_ns
+    assert timing.device_ms("engine.combine") == []  # no CUDA stream
+    assert "vvc_mip.engine.combine" in names
+    assert torch.equal(costs.min_sad_had,
+                       torch.minimum(2 * costs.sad, costs.satd))
+
+
 def test_latency_engine_and_readback_spans():
     engine = LatencyMipCostEngine(W, H, [torch.device("cpu")])
     frame = _frames()[0].numpy()
@@ -224,6 +250,29 @@ def test_readers(metric, monkeypatch):
         assert value == sorted(stretch[HOST_READERS[metric]])[1]
         assert value < 10.0  # not the warm-up's
     assert read(types.SimpleNamespace(entry=other)) is None
+
+
+@pytest.mark.parametrize("metric", ["combine_ms_per_batch",
+                                    "combine_roofline"])
+def test_combine_readers(metric, monkeypatch):
+    """The combine's readers take the stretch's ``engine.combine`` card
+    times, in engine_batch cells only, and nothing where the program
+    recorded none (a program without the span)."""
+    read = harness.reader(metric)
+    cell = harness.load_cell("b1080-full-resident")
+    own = types.SimpleNamespace(entry="engine_batch", cell=cell)
+    assert read(own) is None  # no record
+    _record_warm_up_then_stretch(monkeypatch)
+    since = program_spans.stretch_start_ns()
+    monkeypatch.setattr(timing, "device_ms", lambda name, since_ns=0: {
+        ("engine.combine", since): [1.0, 2.0]}.get((name, since_ns), []))
+    want = {"combine_ms_per_batch": 1.5,
+            # SAD and SATD read, minSadHad written: 3 x 16 x 135 x 97840
+            # int32 at 3.35 TB/s
+            "combine_roofline": 100.0 * 2_536_012_800 / 3.35e9 / 1.5}[metric]
+    assert read(own) == pytest.approx(want, rel=1e-12)
+    other = types.SimpleNamespace(entry="cli_latency", cell=cell)
+    assert read(other) is None
 
 
 def test_stretch_is_after_the_last_pause(monkeypatch):

@@ -119,6 +119,15 @@ def _flatten_strided(blocks: dict[int, torch.Tensor]) -> torch.Tensor:
     return torch.cat([blocks[g.index] for g in GROUPS], dim=-1)
 
 
+def _combine(sad, satd, device=None) -> torch.Tensor:
+    """minSadHad = min(2 SAD, SATD) of every cost (reference: intra.cl:
+    1122-1168, which forms it inside its kernel), as span
+    ``engine.combine``; ``device``: a CUDA device whose current stream
+    the span also times."""
+    with span("engine.combine", device):
+        return torch.minimum(2 * sad, satd)
+
+
 def compute_ext(frame, ref, halo_row, is_top: bool, width: int, height: int,
                 max_performance: bool = False, timed: bool = False):
     """Cost computation against a halo-extended reference slab.
@@ -131,15 +140,16 @@ def compute_ext(frame, ref, halo_row, is_top: bool, width: int, height: int,
     hold the frame's top row.  Returns (sad, satd, min_sad_had), each
     [B, nCTU, 97840]; with ``max_performance`` (the reference's
     MAX_PERFORMANCE_DIST, main_aux_functions.h:1) sad/satd are None and
-    only minSadHad is computed.  ``timed``: span ``engine.launch`` also
-    times the class calls on the card, with a pair of CUDA events.
+    only minSadHad is computed.  ``timed``: spans ``engine.launch`` and
+    ``engine.combine`` also time the class calls and the minSadHad
+    combine on the card, with a pair of CUDA events each.
     """
     outs = _run_classes(frame, ref, halo_row, is_top, width, height,
                         max_performance, timed=timed)
     if max_performance:
         return None, None, outs[0]
     sad, satd = outs
-    return sad, satd, torch.minimum(2 * sad, satd)
+    return sad, satd, _combine(sad, satd, sad.device if timed else None)
 
 
 def compute_blocks(frame, ref, halo_row, is_top: bool, width: int,
@@ -164,7 +174,7 @@ def compute_blocks(frame, ref, halo_row, is_top: bool, width: int,
     if max_performance:
         return {}, {}, blocks(outs[0])
     sad, satd = outs
-    return blocks(sad), blocks(satd), blocks(torch.minimum(2 * sad, satd))
+    return blocks(sad), blocks(satd), blocks(_combine(sad, satd))
 
 
 @functools.cache
@@ -242,6 +252,7 @@ class MipCostEngine:
     def compute_batch(self, frames, ref_frames=None) -> FrameCosts:
         """Batched search: [B, H, W] frames in one pass (one kernel launch
         per shape class for the whole batch).  FrameCosts fields gain a
-        leading batch axis.  Under a profiler, span ``engine.launch``
-        also holds the class calls' time on the card."""
+        leading batch axis.  Under a profiler, spans ``engine.launch``
+        and (full report) ``engine.combine`` also hold the class calls'
+        and the combine's time on the card."""
         return self._costs(frames, ref_frames, timed=True)
