@@ -3,11 +3,15 @@ per output field, so that a chunk's readback never overwrites the arrays
 the writer thread is still exporting.  The CLI's single-engine, latency
 and mesh paths with one frame a chunk and drains slowed until the next
 chunk's readback is done write the files of a one-chunk run byte for
-byte; the latency engine's own results are the caller's."""
+byte; the latency engine's own results are the caller's.  The part plan
+of the CLI's step, a read in parts filling its rows and keeping the
+two-slot contract, the CPU step in one pass, and (on the card) the
+parted step bit-exact against the one-pass step."""
 
 import contextlib
 import filecmp
 import io
+import itertools
 import threading
 
 import numpy as np
@@ -15,10 +19,14 @@ import pytest
 import torch
 
 from vvc_mip_gpu_tpu_torch import cli as tcli
+from vvc_mip_gpu_tpu_torch.constants import num_ctus
 from vvc_mip_gpu_tpu_torch.io import export as texport
 from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
+from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
 from vvc_mip_gpu_tpu_torch.parallel.latency_engine import LatencyMipCostEngine
-from vvc_mip_gpu_tpu_torch.utils import readback
+from vvc_mip_gpu_tpu_torch.utils import readback, timing
+from vvc_mip_gpu_tpu_torch.utils.config import EngineConfig
 from vvc_mip_gpu_tpu_torch.utils.readback import ReadbackRing
 
 CLI_ARGS = ["-f", "4", "-s", "128x128", "--Synthetic", "--FullDistortion",
@@ -119,3 +127,203 @@ def test_latency_engine_results_stay_the_callers():
     for got, want in zip((first.sad, first.satd, first.min_sad_had), kept):
         assert torch.equal(got, want)
     assert not torch.equal(first.min_sad_had, second.min_sad_had)
+
+
+# the JVET sizes, 416x240 up to 3840x2160
+SIZES = [(416, 240), (832, 480), (1280, 720), (1920, 1080), (3840, 2160)]
+FILTER = ("filterFrame_2d_int_quarterCtu", 2)
+
+
+@pytest.mark.parametrize("width, height", SIZES)
+def test_part_plan(width, height):
+    """Every chunk of 1 to 16 frames: consecutive parts of whole frames
+    that cover it once, in order, each of at least ``MIN_PART_CTUS`` CTUs
+    unless the chunk is one part, as many parts as that allows, even to a
+    frame; one part on the CPU.  At 4K a batch of 16 is searched in parts
+    of one or two frames."""
+    ctus = num_ctus(width, height)[2]
+    least = readback.MIN_PART_CTUS
+    for n in range(1, 17):
+        assert readback.part_plan("cpu", n, ctus) == [(0, n)]
+        parts = readback.part_plan("cuda", n, ctus)
+        assert [b0 for b0, _ in parts] == [0] + [b1 for _, b1 in parts[:-1]]
+        assert parts[-1][1] == n
+        sizes = [b1 - b0 for b0, b1 in parts]
+        assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+        assert sizes == sorted(sizes)
+        if len(parts) > 1:
+            assert min(sizes) * ctus >= least
+        # one part more would leave a part below the minimum
+        assert n // (len(parts) + 1) * ctus < least
+        if (width, height) == (3840, 2160) and n == 16:
+            assert max(sizes) <= 2
+
+
+def test_parted_read_fills_rows_and_keeps_two_slots():
+    """A read in parts puts each part in its rows of the next slot and
+    shares the slots with whole reads: its arrays stay until the slot
+    comes round again."""
+    ring = ReadbackRing()
+    a = torch.arange(5 * 3, dtype=torch.int32).view(5, 3)
+    pending = ring.parted(5)
+    pending.copy(0, a[:2], None, a[:2] + 100)
+    pending.copy(2, a[2:], None, a[2:] + 100)
+    first, none, other = pending.read()
+    assert none is None
+    np.testing.assert_array_equal(first, a.numpy())
+    np.testing.assert_array_equal(other, a.numpy() + 100)
+    second, = ring.read(a + 10)
+    np.testing.assert_array_equal(first, a.numpy())  # the other slot
+    pending = ring.parted(5)
+    for b0, b1 in [(0, 1), (1, 3), (3, 5)]:
+        pending.copy(b0, a[b0:b1] + 20, None, a[b0:b1] + 120)
+    third, _, _ = pending.read()
+    np.testing.assert_array_equal(first, third)  # slot 0 again
+    np.testing.assert_array_equal(third, a.numpy() + 20)
+    np.testing.assert_array_equal(second, (a + 10).numpy())
+
+
+def _step(max_performance, filtered, n_frames):
+    """The CLI's single-engine step on the CPU at 128x128: (enqueue, read,
+    frames, refs)."""
+    ft, ki = FILTER if filtered else (None, 0)
+    cfg = EngineConfig(width=128, height=128, n_frames=n_frames,
+                       filter_type=ft, kernel_idx=ki,
+                       max_performance=max_performance,
+                       batch_frames=n_frames)
+    _, enqueue, read = tcli._searcher(cfg, torch.device("cpu"), n_frames)
+    frames = torch.from_numpy(synthetic_frames(
+        n_frames, 128, 128, seed=5).astype(np.int32))
+    refs = filter_frames(frames, *FILTER) if filtered else None
+    return enqueue, read, frames, refs
+
+
+def test_cpu_step_is_one_pass(monkeypatch):
+    """On the CPU each chunk is one ``compute_batch`` and one
+    ``ReadbackRing.read``, even where the plan would part it on CUDA:
+    the path the benchmark's planted faults go through."""
+    monkeypatch.setattr(readback, "MIN_PART_CTUS", 1)
+    calls = {"compute_batch": 0, "read": 0}
+
+    def counted(cls, name, key):
+        original = getattr(cls, name)
+
+        def wrapper(*args, **kwargs):
+            calls[key] += 1
+            return original(*args, **kwargs)
+
+        monkeypatch.setattr(cls, name, wrapper)
+
+    counted(MipCostEngine, "compute_batch", "compute_batch")
+    counted(ReadbackRing, "read", "read")
+    enqueue, read, frames, _ = _step(True, False, 3)
+    for k, pocs in enumerate(([0, 1], [2]), start=1):
+        msh, sad, satd = read(enqueue(frames, None, pocs), len(pocs))
+        assert msh.shape[0] == len(pocs) and sad is None and satd is None
+        assert calls == {"compute_batch": k, "read": k}
+
+
+@pytest.mark.parametrize("max_performance, filtered",
+                         [(True, False), (False, True)])
+def test_parted_step_equals_one_pass_on_the_cpu(max_performance, filtered,
+                                                monkeypatch):
+    """The CLI's step with the chunk forced into uneven parts returns the
+    one-pass step's arrays, one ``readback.part`` span a part."""
+    enqueue, read, frames, refs = _step(max_performance, filtered, 3)
+    want = [a.copy() for a in read(enqueue(frames, refs, [0, 1, 2]), 3)
+            if a is not None]
+    monkeypatch.setattr(tcli, "part_plan", lambda *_: [(0, 1), (1, 3)])
+    timing.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = [a for a in read(enqueue(frames, refs, [0, 1, 2]), 3)
+               if a is not None]
+    assert len(timing.spans("readback.part")) == 2
+    assert len(timing.spans("readback.read")) == 1
+    timing.clear()
+    assert len(got) == len(want) == (1 if max_performance else 3)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def _assert_equal_on(device, host_arrays, tensors):
+    for a, t in zip(host_arrays, tensors):
+        assert (a is None) == (t is None)
+        if a is not None:
+            assert torch.equal(torch.from_numpy(a).to(device), t)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA device")
+@pytest.mark.parametrize("width, height", [(1920, 1080), (3840, 2160)])
+def test_parted_step_is_bit_exact_on_the_card(width, height):
+    """The CLI's step on the card (in parts where the plan parts the
+    chunk, unevenly at 11 frames), for chunks of 1, 3, 11 and 16 frames,
+    max-performance and full
+    report, original and filtered references, returns the host arrays of
+    the one-pass step's costs (``compute_batch`` on the whole chunk),
+    compared on the card; a second read leaves the first's arrays, a
+    third reuses their slot."""
+    device = torch.device("cuda")
+    pool = torch.from_numpy(np.random.default_rng(width).integers(
+        0, 1024, (18, height, width), dtype=np.int32)).to(device)
+    filtered = filter_frames(pool, *FILTER)
+    for chunk, max_performance, refs in itertools.product(
+            (1, 3, 11, 16), (True, False), (None, filtered)):
+        ft, ki = FILTER if refs is not None else (None, 0)
+        cfg = EngineConfig(width=width, height=height, n_frames=18,
+                           filter_type=ft, kernel_idx=ki,
+                           max_performance=max_performance,
+                           batch_frames=chunk)
+        _, enqueue, read = tcli._searcher(cfg, device, 18)
+        engine = MipCostEngine(width, height,
+                               max_performance=max_performance,
+                               device=device)
+
+        def one_pass(i):
+            c = engine.compute_batch(
+                pool[i:i + chunk],
+                None if refs is None else refs[i:i + chunk])
+            return c.min_sad_had, c.sad, c.satd
+
+        pocs = [list(range(i, i + chunk)) for i in range(3)]
+        first = read(enqueue(pool, refs, pocs[0]), chunk)
+        want = one_pass(0)
+        _assert_equal_on(device, first, want)
+        second = read(enqueue(pool, refs, pocs[1]), chunk)
+        _assert_equal_on(device, second, one_pass(1))
+        _assert_equal_on(device, first, want)
+        third = read(enqueue(pool, refs, pocs[2]), chunk)
+        _assert_equal_on(device, third, one_pass(2))
+        assert all(a is None or np.shares_memory(a, b)
+                   for a, b in zip(first, third))
+        del first, second, third, want
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA device")
+@pytest.mark.parametrize("width, height, chunk",
+                         [(1920, 1080, 16), (3840, 2160, 5)])
+def test_part_spans_time_the_copies_on_the_card(width, height, chunk):
+    """Under a profiler one parted step records one ``readback.part`` per
+    part, each with a time on the card, inside one ``readback.read``."""
+    device = torch.device("cuda")
+    cfg = EngineConfig(width=width, height=height, n_frames=chunk,
+                       max_performance=True, batch_frames=chunk)
+    _, enqueue, read = tcli._searcher(cfg, device, chunk)
+    frames = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 1024, (chunk, height, width), dtype=np.int32)).to(device)
+    read(enqueue(frames, None, list(range(chunk))), chunk)  # warm
+    parts = readback.part_plan("cuda", chunk, num_ctus(width, height)[2])
+    assert len(parts) > 1
+    timing.clear()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        read(enqueue(frames, None, list(range(chunk))), chunk)
+    copies = timing.device_ms("readback.part")
+    assert len(copies) == len(parts) and all(ms > 0 for ms in copies)
+    assert len(timing.spans("readback.read")) == 1
+    timing.clear()

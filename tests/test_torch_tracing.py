@@ -275,6 +275,34 @@ def test_combine_readers(metric, monkeypatch):
     assert read(other) is None
 
 
+def test_readback_overlap_reader(monkeypatch):
+    """``readback_overlap_share``: 100 x (1 - the CLI read's mean card ms
+    / the stretch's ``readback.part`` card ms per ``readback.read``), in
+    cli_step cells only, and nothing where the program recorded no part
+    (a program that reads back in one copy)."""
+    read = harness.reader("readback_overlap_share")
+    own = types.SimpleNamespace(entry="cli_step",
+                                device_ms=lambda name: {
+                                    "cli.read": [2.0, 4.0]}.get(name, []))
+    assert read(own) is None  # no record
+    monkeypatch.setattr(program_spans, "PAUSE_S", 0.05)
+    with _profiled():
+        with timing.span("readback.read"):
+            time.sleep(0.01)
+    time.sleep(0.1)
+    with _profiled():
+        for _ in range(2):
+            with timing.span("readback.read"):
+                pass
+    assert read(own) is None  # reads, but no part
+    since = program_spans.stretch_start_ns()
+    monkeypatch.setattr(timing, "device_ms", lambda name, since_ns=0: {
+        ("readback.part", since): [5.0] * 4}.get((name, since_ns), []))
+    # 20 ms of copies over 2 reads, 3 ms of it exposed a read
+    assert read(own) == pytest.approx(70.0, rel=1e-12)
+    assert read(types.SimpleNamespace(entry="engine_batch")) is None
+
+
 def test_stretch_is_after_the_last_pause(monkeypatch):
     """Records from the last pause longer than ``PAUSE_S`` on: a pause is
     measured from the latest end so far, so a span that outlasts those

@@ -45,7 +45,8 @@ from vvc_mip_gpu_tpu_torch.parallel.mesh import make_mesh, visible_devices
 from vvc_mip_gpu_tpu_torch.parallel.sharded_engine import ShardedMipCostEngine
 from vvc_mip_gpu_tpu_torch.utils.config import EngineConfig
 from vvc_mip_gpu_tpu_torch.utils.pipeline import pipelined
-from vvc_mip_gpu_tpu_torch.utils.readback import ReadbackRing
+from vvc_mip_gpu_tpu_torch.utils.readback import (PartedRead, ReadbackRing,
+                                                  part_plan)
 from vvc_mip_gpu_tpu_torch.utils.timing import StageTimer, print_timestamp
 
 PLATFORM_ENV = "VVC_MIP_PLATFORM"
@@ -188,7 +189,17 @@ def _searcher(cfg: EngineConfig, device: torch.device, n_pending: int):
     [n, nCTU, 97840] each (sad, satd None in max-performance runs).  The
     arrays alias a readback ring's buffers (utils/readback.py): valid
     until the next-but-one read, which is as long as the pipeline's
-    drain of the chunk needs them."""
+    drain of the chunk needs them.
+
+    On one CUDA device (neither a mesh nor --LatencyMode) ``enqueue``
+    searches the chunk in parts of whole frames (``readback.part_plan``)
+    on the device's current stream, and after each part's launches hands
+    the part to the ring, whose copy stream copies it to the pinned slot
+    while the next part searches; ``read`` waits for the copy stream.  So
+    only the last part's copy stands after the search.  On the CPU, and
+    for a chunk too small for two parts, ``enqueue`` searches the chunk
+    in one pass and ``read`` copies it with ``ReadbackRing.read``: on the
+    CPU a copy runs on the calling thread, so nothing could overlap it."""
     true_n = num_ctus(cfg.width, cfg.height)[2]
     ring = ReadbackRing()
 
@@ -238,11 +249,24 @@ def _searcher(cfg: EngineConfig, device: torch.device, n_pending: int):
 
     def enqueue(frames, refs, pocs):
         idx = torch.tensor(pocs, device=device)
-        return engine.compute_batch(
-            frames.index_select(0, idx),
-            None if refs is None else refs.index_select(0, idx))
+        frames = frames.index_select(0, idx)
+        refs = None if refs is None else refs.index_select(0, idx)
+        parts = part_plan(device.type, len(pocs), true_n)
+        if len(parts) == 1:
+            return engine.compute_batch(frames, refs)
+        pending = ring.parted(len(pocs))
+        for b0, b1 in parts:
+            costs = engine.compute_batch(
+                frames[b0:b1], None if refs is None else refs[b0:b1])
+            pending.copy(b0, costs.min_sad_had, costs.sad, costs.satd)
+        return pending
 
-    return max(1, cfg.batch_frames), enqueue, host
+    def read(pending, n):
+        if isinstance(pending, PartedRead):
+            return pending.read()
+        return host(pending, n)
+
+    return max(1, cfg.batch_frames), enqueue, read
 
 
 def run(cfg: EngineConfig, synthetic: bool = False,

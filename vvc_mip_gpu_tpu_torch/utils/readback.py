@@ -11,11 +11,24 @@ dispatches (and reads back) item i+1 while item i drains on the writer
 thread, and it waits for drain i before it dispatches item i+2, so the
 slot that read i+2 reuses is free.  With one slot, item i+1's readback
 would overwrite the arrays drain i is still writing out.  The arrays a
-read returns are therefore valid until the next-but-one read; a caller
+read returns are therefore valid until the next-but-one read (for a read
+in parts, until the next-but-one read's first part is copied); a caller
 that keeps one longer copies it.
+
+A read in parts (``ReadbackRing.parted``) hides the copy behind the
+search that produces it: the caller searches a chunk's frames in parts
+(``part_plan``) and hands each finished part to ``PartedRead.copy``,
+which copies it into its rows of the slot on the ring's copy stream, one
+stream per CUDA device, while the device's current stream goes on with
+the next part.  The link (~55 GB/s) then runs beside the search in place
+of after it.  On the CPU a copy is a plain synchronous copy and there is
+nothing to overlap, so ``part_plan`` keeps a CPU chunk whole and its
+caller reads it with ``ReadbackRing.read``.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -24,6 +37,33 @@ from vvc_mip_gpu_tpu_torch.utils.timing import span
 
 SLOTS = 2
 
+# The least CTUs a part of a chunk holds on a CUDA device: the fewest at
+# which the card's search time per CTU measured within ~3.5 % of a whole
+# batch of 16's (one H100: 1920x1080 4 frames, 540 CTUs, 5.338 us a CTU
+# against 5.173; 3840x2160 2 frames, 1020 CTUs, 5.331 against 5.182).
+# Below it the class launches' tails show: 405 CTUs (3 frames at 1080p)
+# +5.1 %, 510 (one 4K frame) +5.5 %, 135 (one 1080p frame) +33 %, and a
+# part of one 1080p frame also lets the host's 17 launches, ~0.7 ms, set
+# the pace.  At 4K the CLI's step read as many host frames/s with parts
+# of 2 frames as with parts of 1 (198-199 against 198-203, on a card
+# whose copies ran at ~43 GB/s), 187 with parts of 4, 136-138 in one
+# pass; a part of 2 frames searches 3 % slower than a batch, one of 1
+# frame 7 %.
+MIN_PART_CTUS = 540
+
+
+def part_plan(device_type: str, n_frames: int,
+              ctus_per_frame: int) -> list[tuple[int, int]]:
+    """[b0, b1) of each part of a chunk of ``n_frames`` frames of
+    ``ctus_per_frame`` CTUs each: consecutive whole frames, as even as
+    whole frames allow (the smaller parts first), each of at least
+    ``MIN_PART_CTUS`` CTUs.  One part on any device but CUDA, and where
+    the chunk has too few frames for two such parts."""
+    per_part = -(-MIN_PART_CTUS // ctus_per_frame)
+    n_parts = max(1, n_frames // per_part) if device_type == "cuda" else 1
+    bounds = [n_frames * i // n_parts for i in range(n_parts + 1)]
+    return list(zip(bounds, bounds[1:]))
+
 
 class ReadbackRing:
     """Host buffers for the readbacks of one caller, ``SLOTS`` per field,
@@ -31,15 +71,26 @@ class ReadbackRing:
 
     def __init__(self):
         self._buffers: dict[tuple[int, int], torch.Tensor] = {}
+        self._streams: dict[torch.device, torch.cuda.Stream] = {}
         self._next = 0
 
-    def _buffer(self, slot: int, field: int, t: torch.Tensor) -> torch.Tensor:
+    def _take(self) -> int:
+        slot = self._next
+        self._next = (slot + 1) % SLOTS
+        return slot
+
+    def _buffer(self, slot: int, field: int, t: torch.Tensor,
+                shape=None) -> torch.Tensor:
+        """The slot's buffer of ``field`` for ``t``'s dtype, viewed as
+        ``shape`` (``t``'s own by default)."""
+        shape = t.shape if shape is None else shape
+        numel = math.prod(shape)
         flat = self._buffers.get((slot, field))
-        if flat is None or flat.numel() < t.numel() or flat.dtype != t.dtype:
-            flat = torch.empty(t.numel(), dtype=t.dtype,
+        if flat is None or flat.numel() < numel or flat.dtype != t.dtype:
+            flat = torch.empty(numel, dtype=t.dtype,
                                pin_memory=t.device.type == "cuda")
             self._buffers[slot, field] = flat
-        return flat[:t.numel()].view(t.shape)
+        return flat[:numel].view(shape)
 
     def read(self, *tensors: torch.Tensor | None
              ) -> tuple[np.ndarray | None, ...]:
@@ -49,8 +100,7 @@ class ReadbackRing:
         and that stream is synchronized before the arrays are returned.
         Spans ``readback.read`` and, inside it, ``readback.wait`` (the
         synchronization)."""
-        slot = self._next
-        self._next = (slot + 1) % SLOTS
+        slot = self._take()
         with span("readback.read"):
             bufs = [None if t is None else
                     self._buffer(slot, k, t).copy_(t, non_blocking=True)
@@ -60,3 +110,62 @@ class ReadbackRing:
                             if t is not None and t.device.type == "cuda"}:
                     torch.cuda.current_stream(dev).synchronize()
         return tuple(None if b is None else b.numpy() for b in bufs)
+
+    def parted(self, n: int) -> "PartedRead":
+        """A read of ``n`` frames that arrive in parts, into the next
+        slot."""
+        return PartedRead(self, self._take(), n)
+
+    def _copy_stream(self, device: torch.device) -> torch.cuda.Stream:
+        stream = self._streams.get(device)
+        if stream is None:
+            stream = self._streams[device] = torch.cuda.Stream(device)
+        return stream
+
+
+class PartedRead:
+    """One read of ring slot ``slot``, [n, ...] per field, filled part by
+    part: ``copy`` each part as soon as it is enqueued, then ``read``."""
+
+    def __init__(self, ring: ReadbackRing, slot: int, n: int):
+        self.ring = ring
+        self.slot = slot
+        self.n = n
+        self.bufs: list[torch.Tensor | None] = []
+        self.stream: torch.cuda.Stream | None = None  # the copies' stream
+
+    def copy(self, b0: int, *tensors: torch.Tensor | None) -> None:
+        """Copy each tensor (None stays None), one part [k, ...] of its
+        field, into rows [b0, b0 + k) of the slot.  On CUDA the copy runs
+        on the ring's copy stream of the tensors' device, once the work
+        the device's current stream holds so far (the part's search) is
+        done; the allocator keeps the tensors' memory until the copy has
+        run.  Span ``readback.part``, timed on the copy stream."""
+        device = next(t.device for t in tensors if t is not None)
+        stream = None
+        if device.type == "cuda":
+            stream = self.stream = self.ring._copy_stream(device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+        if not self.bufs:
+            self.bufs = [None if t is None else self.ring._buffer(
+                self.slot, k, t, (self.n, *t.shape[1:]))
+                for k, t in enumerate(tensors)]
+        with torch.cuda.stream(stream), span("readback.part", device):
+            for buf, t in zip(self.bufs, tensors):
+                if t is None:
+                    continue
+                buf[b0:b0 + len(t)].copy_(t, non_blocking=True)
+                if stream is not None:
+                    t.record_stream(stream)
+
+    def read(self) -> tuple[np.ndarray | None, ...]:
+        """The slot's arrays, once every part's copy is done: the
+        device's current stream waits for the copy stream, and is
+        synchronized.  Spans ``readback.read`` and, inside it,
+        ``readback.wait``."""
+        with span("readback.read"), span("readback.wait"):
+            if self.stream is not None:
+                current = torch.cuda.current_stream(self.stream.device)
+                current.wait_stream(self.stream)
+                current.synchronize()
+        return tuple(None if b is None else b.numpy() for b in self.bufs)
