@@ -785,14 +785,13 @@ def sharded_checks(frames: torch.Tensor, main_msh: torch.Tensor, width: int,
     MipCostEngine on the edge-padded frames (whole padded tensors) and on
     the true frames (valid CUs of the true CTUs; ``main_msh``, the main
     path's minSadHad of ``frames``, for max-performance), its mask against
-    _validity_mask_np and its launches against n_shards x (1, 7, 9).
+    _validity_mask over the padded height and its launches against
+    n_shards x (1, 7, 9).
     Returns {mesh: (engine, reference frames or None)}."""
     from vvc_mip_gpu_tpu_torch.models.cost_engine import (
         FrameCosts, MipCostEngine, _validity_mask)
     from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
     from vvc_mip_gpu_tpu_torch.parallel import ShardedMipCostEngine, make_mesh
-    from vvc_mip_gpu_tpu_torch.parallel.sharded_engine import (
-        _validity_mask_np)
 
     dev = frames.device
     valid = torch.from_numpy(_validity_mask(width, height)).to(dev)
@@ -822,7 +821,7 @@ def sharded_checks(frames: torch.Tensor, main_msh: torch.Tensor, width: int,
             got.sad, got.satd, got.min_sad_had)), None)
         bad += [f"true CTUs: {b}" for b in differing(got_true, true, fields,
                                                      valid)]
-        mask_ok = np.array_equal(got.valid.cpu().numpy(), _validity_mask_np(
+        mask_ok = np.array_equal(got.valid.cpu().numpy(), _validity_mask(
             width, height, engine.padded_height))
         if not mask_ok:
             bad.append("validity mask")

@@ -109,28 +109,28 @@ class _SentinelTorch:
 
 
 def test_each_class_alone_writes_exactly_its_blocks(monkeypatch):
-    """profile_incontext's unit of work, one class at a time: the class's
-    blocks equal the same blocks of the whole search, and every other
-    entry of the output is left unwritten."""
+    """profile_incontext's unit of work, one class at a time: the columns
+    of the class's groups equal the same columns of the whole search, the
+    engine's ``_columns`` name exactly those, and every other entry of the
+    output is left unwritten."""
     monkeypatch.setattr(tce, "torch", _SentinelTorch())
     frames = torch.from_numpy(np.random.default_rng(0).integers(
         0, 1024, size=(1, SIZE, SIZE), dtype=np.int32))
     whole = profile_incontext.blocks_of(frames)
-    plans = class_plans(SIZE, SIZE)
-    assert sorted(whole) == list(range(len(STRIDED_DISTORTIONS_PER_CTU) - 1))
-    out_whole = next(iter(whole.values()))._base
-    assert int(out_whole.min()) >= 0  # the whole search writes everything
-    for i, cplan in enumerate(plans):
+    assert whole.shape[-1] == int(STRIDED_DISTORTIONS_PER_CTU[-1])
+    assert int(whole.min()) >= 0  # the whole search writes everything
+    for i, cplan in enumerate(class_plans(SIZE, SIZE)):
         got = profile_incontext.blocks_of(frames, (i,))
-        groups = sorted(gp.group_index for gp in cplan.groups)
-        assert sorted(got) == groups
-        mask = torch.zeros(out_whole.shape[-1], dtype=torch.bool)
-        for g in groups:
-            assert torch.equal(got[g], whole[g]), (i, g)
-            mask[int(STRIDED_DISTORTIONS_PER_CTU[g]):
-                 int(STRIDED_DISTORTIONS_PER_CTU[g + 1])] = True
-        out = got[groups[0]]._base
-        assert bool((out[..., ~mask] == -1).all()), i
+        mask = torch.zeros(whole.shape[-1], dtype=torch.bool)
+        for gp in cplan.groups:
+            mask[int(STRIDED_DISTORTIONS_PER_CTU[gp.group_index]):
+                 int(STRIDED_DISTORTIONS_PER_CTU[gp.group_index + 1])] = True
+        columns = torch.zeros_like(mask)
+        for c in tce._columns(SIZE, SIZE, (i,)):
+            columns[c] = True
+        assert torch.equal(columns, mask), i
+        assert torch.equal(got[..., mask], whole[..., mask]), i
+        assert bool((got[..., ~mask] == -1).all()), i
 
 
 def test_incontext_sweep_on_the_cpu(monkeypatch, capsys):

@@ -125,20 +125,30 @@ def test_compute_batch_matches_jax():
             f"batch frame {b}")
 
 
-def test_compute_blocks_flatten_to_compute_ext():
+def test_class_subsets_write_their_columns_and_union_to_compute_ext():
+    """The latency engine's unit of work: the ``_columns`` of a partition
+    of the classes cover the strided layout once, and each subset's
+    ``_run_classes`` outputs, taken at its columns, together equal
+    compute_ext (minSadHad through ``_combine``)."""
     width, height = 128, 128
     frame = torch.from_numpy(_frames(width, height, seed=4)[0][None])
     halo = frame[:, 0]
-    sad_b, satd_b, msh_b = tce.compute_blocks(frame, frame, halo, True,
-                                              width, height)
-    sad, satd, msh = tce.compute_ext(frame, frame, halo, True, width, height)
-    for blocks, flat in ((sad_b, sad), (satd_b, satd), (msh_b, msh)):
-        assert torch.equal(tce._flatten_strided(blocks), flat)
-    # a class subset fills exactly its groups' blocks
-    _, _, sub = tce.compute_blocks(frame, frame, halo, True, width, height,
-                                   max_performance=True, classes=(0, 16))
-    assert sorted(sub) == [0, 46]
-    assert torch.equal(sub[46], msh_b[46])
+    want = tce.compute_ext(frame, frame, halo, True, width, height)
+    s = tce.STRIDED_DISTORTIONS_PER_CTU
+    assert tce._columns(width, height, (0, 16)) == [
+        slice(int(s[0]), int(s[1])), slice(int(s[46]), int(s[47]))]
+    covered = torch.zeros(tce.PER_CTU, dtype=torch.int32)
+    got = [torch.full_like(want[0], -1) for _ in range(2)]
+    for classes in ((0, 16), tuple(range(1, 16))):
+        outs = tce._run_classes(frame, frame, halo, True, width, height,
+                                False, classes)
+        for c in tce._columns(width, height, classes):
+            covered[c] += 1
+            for g, out in zip(got, outs):
+                g[..., c] = out[..., c]
+    assert bool((covered == 1).all())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(tce._combine(*got), want[2])
 
 
 def test_cpu_path_launches_no_kernel():

@@ -2,15 +2,17 @@
 CPU against the JAX package's, tolerance 0.
 
 The pure functions (``factor_devices``, ``class_weights``,
-``partition_classes``, ``_padded_height``, ``_validity_mask_np`` and the
-multi-process ``frame_slice`` arithmetic) equal JAX's over grids of
-inputs.  The sharded engine on a (2, 2) mesh of the CPU equals JAX's
+``partition_classes``, ``_padded_height``, the validity mask of a padded
+height and the multi-process ``frame_slice`` arithmetic) equal JAX's over
+grids of inputs.  The sharded engine on a (2, 2) mesh of the CPU equals JAX's
 ShardedMipCostEngine on the conftest's virtual 8-device mesh over the
 whole padded tensors; with a distinct reference (so a halo taken from the
 wrong frame would show) it equals the port's own MipCostEngine on the
 edge-padded frames.  The latency engine with 3 parts equals JAX's
-MipCostEngine.  Inputs are made with numpy from a seed and handed to both
-sides.  The kernels on the card, under meshes and parts, are held in
+MipCostEngine; with one part its ``gather`` hands over the part's own
+output, and its full report reads back minSadHad formed on the device.
+Inputs are made with numpy from a seed and handed to both sides.  The
+kernels on the card, under meshes and parts, are held in
 test_torch_kernels.py (marker ``cuda``).
 """
 
@@ -28,6 +30,7 @@ from vvc_mip_gpu_tpu.parallel import latency_engine as jlat
 from vvc_mip_gpu_tpu.parallel import mesh as jmesh
 from vvc_mip_gpu_tpu.parallel import sharded_engine as jshard
 from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
+from vvc_mip_gpu_tpu_torch.models import cost_engine as tce
 from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
 from vvc_mip_gpu_tpu_torch.parallel import distributed as tdist
 from vvc_mip_gpu_tpu_torch.parallel import latency_engine as tlat
@@ -92,7 +95,7 @@ def test_padded_height_and_validity_mask_match_jax():
                                    (132, 100, 1), (1920, 1080, 2)):
         padded = tshard._padded_height(height, n_space)
         np.testing.assert_array_equal(
-            tshard._validity_mask_np(width, height, padded),
+            tce._validity_mask(width, height, padded),
             jshard._validity_mask_np(width, height, padded))
 
 
@@ -178,7 +181,7 @@ def test_sharded_engine_distinct_reference(n_data, n_space,
     fields = ("min_sad_had",) if max_performance else FIELDS[:3]
     _assert_equal(padded, got, f"({n_data}, {n_space}) vs padded", fields)
     np.testing.assert_array_equal(
-        got.valid.numpy(), tshard._validity_mask_np(width, H, pad))
+        got.valid.numpy(), jshard._validity_mask_np(width, H, pad))
     true = MipCostEngine(width, H, max_performance=max_performance,
                          device="cpu").compute_batch(frames, refs)
     n_ctu = true.min_sad_had.shape[1]
@@ -210,6 +213,67 @@ def test_latency_engine_distinct_reference():
     assert len(engine._parts) == 4
     got = engine(frame, ref)
     _assert_equal(exp, got, "latency, 4 parts")
+
+
+def test_latency_gather_of_one_part_copies_nothing(monkeypatch):
+    """With one part, ``gather`` hands over the output ``_run_classes``
+    returned, its storage and all: no copy, no concatenation."""
+    returned = []
+    run_classes = tce._run_classes
+
+    def recording(*args, **kwargs):
+        outs = run_classes(*args, **kwargs)
+        returned.extend(outs)
+        return outs
+
+    monkeypatch.setattr(tce, "_run_classes", recording)
+    frame = synthetic_frames(1, 128, 128, seed=5)[0]
+    engine = tlat.LatencyMipCostEngine(128, 128, [CPU])
+    (msh,) = engine.gather(engine.dispatch(frame))
+    (out,) = returned
+    assert msh.data_ptr() == out.data_ptr()
+    assert tuple(msh.shape) == tuple(out.shape[1:])
+
+
+class _NoHostMinimum:
+    """latency_engine's ``torch`` without ``minimum``."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    @staticmethod
+    def minimum(*args, **kwargs):
+        raise AssertionError("minSadHad taken on the host")
+
+
+def test_latency_full_report_reads_back_min_sad_had(monkeypatch):
+    """The full report over 2 parts forms minSadHad once, by ``_combine``
+    on the first part's device: ``read`` gets sad, satd and minSadHad, no
+    minimum is taken after it, and the costs equal MipCostEngine's."""
+    combined = []
+    combine = tce._combine
+
+    def counting(*args, **kwargs):
+        combined.append(args)
+        return combine(*args, **kwargs)
+
+    monkeypatch.setattr(tce, "_combine", counting)
+    monkeypatch.setattr(tlat, "torch", _NoHostMinimum())
+    read = []
+
+    def reading(*tensors):
+        read.append(tensors)
+        return [t.clone() for t in tensors]
+
+    width, height = 128, 128
+    frame = synthetic_frames(1, width, height, seed=6)[0]
+    engine = tlat.LatencyMipCostEngine(width, height, [CPU] * 2,
+                                       max_performance=False)
+    got = engine.assemble(engine.dispatch(frame), reading)
+    (planes,) = read
+    assert len(planes) == 3 and len(combined) == 1
+    exp = MipCostEngine(width, height, device="cpu")(frame)
+    _assert_equal(exp, got, "latency full report, 2 parts")
 
 
 def test_process_group_of_one():

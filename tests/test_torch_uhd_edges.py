@@ -30,8 +30,7 @@ from vvc_mip_gpu_tpu_torch.models.cost_engine import (
 from vvc_mip_gpu_tpu_torch.parallel import ShardedMipCostEngine, make_mesh
 from vvc_mip_gpu_tpu_torch.parallel.latency_engine import (
     LatencyMipCostEngine)
-from vvc_mip_gpu_tpu_torch.parallel.sharded_engine import (
-    _padded_height, _validity_mask_np)
+from vvc_mip_gpu_tpu_torch.parallel.sharded_engine import _padded_height
 
 CPU = torch.device("cpu")
 FULL = ("sad", "satd", "min_sad_had")
@@ -77,7 +76,7 @@ def test_uhd_geometry_and_its_padded_masks():
     for n_space, rows in ((2, 18), (4, 20)):
         padded = _padded_height(2160, n_space)
         assert padded == rows * 128
-        mask = _validity_mask_np(3840, 2160, padded)
+        mask = _validity_mask(3840, 2160, padded)
         assert mask.shape == (rows * 30, valid.shape[1])
         np.testing.assert_array_equal(mask[:510], valid)
         assert not mask[510:].any()

@@ -47,7 +47,7 @@ minSadHad out (the reference's MAX_PERFORMANCE_DIST, as ``bench.py``):
   ring, then ONE decisions CSV of its last frame through the C writer
   (one log per run, as the reference writes).
 - ``--latency``: one frame through LatencyMipCostEngine (the CLI's
-  --LatencyMode: dispatch, then gather, the readback ring and finish),
+  --LatencyMode: dispatch, then gather and the readback ring),
   best of 8 salted frames, with the device's own time per search from
   CUDA events over 16 searches on one card.
 """
@@ -381,7 +381,7 @@ def _bench_latency(width, height, devices) -> tuple[float, dict]:
         0, 1024, size=(height, width), dtype=np.int32)
 
     def assemble(outs):
-        """The CLI's latency read: gather, the readback ring, finish."""
+        """The CLI's latency read: gather and the readback ring."""
         return engine.assemble(outs, ring.read)
 
     for _ in range(1 + WARMUP):  # the libraries, streams and ring slots

@@ -87,10 +87,11 @@ def _run_classes(frame, ref, halo_row, is_top: bool, width: int, height: int,
                  timed: bool = False) -> list[torch.Tensor]:
     """Run the selected classes (indices into ``class_plans``; all by
     default) over [B, H, W] frames.  Returns ``[msh]`` or ``[sad, satd]``,
-    each int32 [B, nCTU, 97840]; entries of unselected classes are left
-    unwritten.  Span ``engine.search`` is the whole call, the samples'
-    int16 casts included; ``engine.launch`` only the class calls, and
-    with ``timed`` also their time on the card."""
+    each int32 [B, nCTU, 97840]; the columns outside the selected
+    classes' ``_columns`` are left unwritten.  Span ``engine.search`` is
+    the whole call, the samples' int16 casts included; ``engine.launch``
+    only the class calls, and with ``timed`` also their time on the
+    card."""
     with span("engine.search"):
         share_ref = ref is frame
         frame = _as_samples(frame)
@@ -113,10 +114,16 @@ def _run_classes(frame, ref, halo_row, is_top: bool, width: int, height: int,
         return outs
 
 
-def _flatten_strided(blocks: dict[int, torch.Tensor]) -> torch.Tensor:
-    """Concatenate per-group [..., nCTU, n*2M] blocks into the strided
-    layout."""
-    return torch.cat([blocks[g.index] for g in GROUPS], dim=-1)
+def _columns(width: int, height: int, classes=None) -> list[slice]:
+    """The column ranges of the strided layout that the selected classes
+    (indices into ``class_plans``; all by default) write in
+    ``_run_classes``' outputs: one per alignment group of their plans."""
+    plans = class_plans(width, height)
+    if classes is not None:
+        plans = tuple(plans[i] for i in classes)
+    s = STRIDED_DISTORTIONS_PER_CTU
+    return [slice(int(s[gp.group_index]), int(s[gp.group_index + 1]))
+            for cplan in plans for gp in cplan.groups]
 
 
 def _combine(sad, satd, device=None) -> torch.Tensor:
@@ -152,44 +159,33 @@ def compute_ext(frame, ref, halo_row, is_top: bool, width: int, height: int,
     return sad, satd, _combine(sad, satd, sad.device if timed else None)
 
 
-def compute_blocks(frame, ref, halo_row, is_top: bool, width: int,
-                   height: int, max_performance: bool = False,
-                   classes: tuple[int, ...] | None = None):
-    """Per-group cost blocks ({group_index: [B, nCTU, n*2M]} dicts) for all
-    shape classes or (``classes``, by class_plans index) a subset.
-    Returns (sad_blocks, satd_blocks, msh_blocks); with
-    ``max_performance`` only msh_blocks is populated."""
-    outs = _run_classes(frame, ref, halo_row, is_top, width, height,
-                        max_performance, classes)
-    plans = class_plans(width, height)
-    if classes is not None:
-        plans = tuple(plans[i] for i in classes)
-    s = STRIDED_DISTORTIONS_PER_CTU
-
-    def blocks(out):
-        return {gp.group_index: out[..., int(s[gp.group_index]):
-                                    int(s[gp.group_index + 1])]
-                for cplan in plans for gp in cplan.groups}
-
-    if max_performance:
-        return {}, {}, blocks(outs[0])
-    sad, satd = outs
-    return blocks(sad), blocks(satd), blocks(_combine(sad, satd))
-
-
 @functools.cache
-def _validity_mask(width: int, height: int) -> np.ndarray:
-    """Static [nCTU, 97840] bool mask of fully-in-frame CUs."""
-    _, _, n_ctu = num_ctus(width, height)
-    out = np.zeros((n_ctu, PER_CTU), bool)
-    for cplan in class_plans(width, height):
+def _validity_mask(width: int, height: int,
+                   padded_height: int | None = None) -> np.ndarray:
+    """Static [nCTU, 97840] bool mask of the CUs fully inside the
+    ``width`` x ``height`` frame, over the CTUs of a frame padded to
+    ``padded_height`` rows (default ``height``; the sharded engine pads
+    to whole CTU rows of every band)."""
+    padded_height = height if padded_height is None else padded_height
+    out = np.zeros((num_ctus(width, padded_height)[2], PER_CTU), bool)
+    for cplan in class_plans(width, padded_height):
         for gp in cplan.groups:
             g = GROUPS[gp.group_index]
-            v = gp.to_ctu_layout(gp.valid)  # [nCTU, nCU]
-            v = np.repeat(v, g.total_modes, axis=1)
+            valid = ((gp.ys + g.height <= height)[:, None]
+                     & (gp.xs + g.width <= width)[None, :])
+            v = np.repeat(gp.to_ctu_layout(valid), g.total_modes, axis=1)
             start = int(STRIDED_DISTORTIONS_PER_CTU[g.index])
             out[:, start:start + v.shape[1]] = v
     return out
+
+
+def as_frames(frames) -> torch.Tensor:
+    """Frames as a tensor: a tensor stays where it is; a numpy array
+    becomes an int16 host tensor (10-bit samples: the kernels' type, half
+    the bytes of an upload in int32)."""
+    if torch.is_tensor(frames):
+        return frames
+    return torch.from_numpy(np.ascontiguousarray(frames, dtype=np.int16))
 
 
 class MipCostEngine:

@@ -35,11 +35,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from vvc_mip_gpu_tpu_torch.models.cost_engine import as_frames
 from vvc_mip_gpu_tpu_torch.parallel.mesh import make_mesh
-from vvc_mip_gpu_tpu_torch.parallel.sharded_engine import (
-    ShardedMipCostEngine,
-    as_frames,
-)
+from vvc_mip_gpu_tpu_torch.parallel.sharded_engine import ShardedMipCostEngine
 from vvc_mip_gpu_tpu_torch.utils.readback import ReadbackRing
 
 

@@ -17,19 +17,16 @@ like the single-device engine's out-of-frame CUs.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
-from vvc_mip_gpu_tpu_torch.constants import (
-    CTU_SIZE,
-    GROUPS,
-    STRIDED_DISTORTIONS_PER_CTU,
-    num_ctus,
+from vvc_mip_gpu_tpu_torch.constants import CTU_SIZE, num_ctus
+from vvc_mip_gpu_tpu_torch.models.cost_engine import (
+    FrameCosts,
+    _validity_mask,
+    as_frames,
+    compute_ext,
 )
-from vvc_mip_gpu_tpu_torch.models.cost_engine import FrameCosts, compute_ext
-from vvc_mip_gpu_tpu_torch.ops.geometry import class_plans
 from vvc_mip_gpu_tpu_torch.parallel.mesh import (
     fork,
     join,
@@ -41,32 +38,6 @@ from vvc_mip_gpu_tpu_torch.parallel.mesh import (
 def _padded_height(height: int, n_space: int) -> int:
     unit = CTU_SIZE * n_space
     return -(-height // unit) * unit
-
-
-@functools.cache
-def _validity_mask_np(width: int, true_height: int, padded_height: int):
-    """[nCTU_padded, DIST_TOTAL] bool — CU fully inside the true frame."""
-    out = np.zeros((num_ctus(width, padded_height)[2],
-                    int(STRIDED_DISTORTIONS_PER_CTU[-1])), bool)
-    for cplan in class_plans(width, padded_height):
-        for gp in cplan.groups:
-            g = GROUPS[gp.group_index]
-            valid = ((gp.ys + g.height <= true_height)[:, None]
-                     & (gp.xs + g.width <= width)[None, :])
-            v = gp.to_ctu_layout(valid)
-            v = np.repeat(v, g.total_modes, axis=1)
-            start = int(STRIDED_DISTORTIONS_PER_CTU[g.index])
-            out[:, start:start + v.shape[1]] = v
-    return out
-
-
-def as_frames(frames) -> torch.Tensor:
-    """Frames as a tensor: a tensor stays where it is; a numpy array
-    becomes an int16 host tensor (10-bit samples: the kernels' type, half
-    the bytes of an upload in int32)."""
-    if torch.is_tensor(frames):
-        return frames
-    return torch.from_numpy(np.ascontiguousarray(frames, dtype=np.int16))
 
 
 def _cat(tensors: list[torch.Tensor], dim: int) -> torch.Tensor:
@@ -102,7 +73,7 @@ class ShardedMipCostEngine:
         self.n_ctus = num_ctus(width, self.padded_height)[2]
         self._streams = {ds: shard_stream(dev)
                          for ds, dev in np.ndenumerate(mesh)}
-        self._valid = torch.from_numpy(_validity_mask_np(
+        self._valid = torch.from_numpy(_validity_mask(
             width, height, self.padded_height)).to(mesh[0, 0])
 
     def pad_frames(self, frames) -> torch.Tensor:

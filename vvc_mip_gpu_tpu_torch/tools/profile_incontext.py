@@ -2,11 +2,11 @@
 
 The port's counterpart of the repository's tools/profile_incontext.py.
 Each shape class is timed through the engine's own path,
-``compute_blocks(frame, frame, frame[:, 0], True, W, H,
-max_performance=True, classes=(i,))`` (models/cost_engine.py), so a
-class's number holds what the whole search pays for it: the frame's
-int16 conversion, the output's allocation (a hit of the caching
-allocator, no fill) and the class's one kernel launch.  The sum over the
+``_run_classes(frame, frame, frame[:, 0], True, W, H, True,
+classes=(i,))`` (models/cost_engine.py), so a class's number holds what
+the whole search pays for it: the frame's int16 conversion, the
+output's allocation (a hit of the caching allocator, no fill) and the
+class's one kernel launch.  The sum over the
 classes counts those shared steps 17 times; the leave-one-out deltas
 (e2e minus the search without one class) count them once.
 
@@ -24,7 +24,7 @@ classes counts those shared steps 17 times; the leave-one-out deltas
 
 The search runs on one 1920x1080 frame (N frames with ``--batch``) drawn
 from ``default_rng(0)``.  On one frame a class alone is shorter on the
-card than the host's call of ``compute_blocks``, so its line times the
+card than the host's call of ``_run_classes``, so its line times the
 host; ``--batch N --loo`` (not in the JAX tool, whose timing loop runs
 inside one compiled program) gives the sweep at a batch that keeps the
 card busy.  A time is the median over ``REPEATS`` runs of ``ITERS``
@@ -48,7 +48,7 @@ import torch
 
 from vvc_mip_gpu_tpu_torch.bench import device_label
 from vvc_mip_gpu_tpu_torch.cli import local_devices
-from vvc_mip_gpu_tpu_torch.models.cost_engine import compute_blocks
+from vvc_mip_gpu_tpu_torch.models.cost_engine import _run_classes
 from vvc_mip_gpu_tpu_torch.ops.geometry import class_plans
 from vvc_mip_gpu_tpu_torch.ops.mip_cost import KERNELS
 
@@ -61,13 +61,15 @@ ABLATE = ("--ablate has no counterpart in the port: the JAX tool replaces "
           "stages")
 
 
-def blocks_of(frames: torch.Tensor, classes=None) -> dict:
-    """compute_blocks' minSadHad blocks ({group index: [B, nCTU, n*2M]})
-    of ``classes`` (all by default) over [B, H, W] frames, original
-    samples, max-performance."""
+def blocks_of(frames: torch.Tensor, classes=None) -> torch.Tensor:
+    """The whole minSadHad output, [B, nCTU, 97840], of ``classes`` (all
+    by default) over [B, H, W] frames, original samples, max-performance:
+    only the classes' ``_columns`` are written.  (It once returned the
+    classes' per-group views of that output; the unit of work timed is
+    the same.)"""
     _, h, w = frames.shape
-    return compute_blocks(frames, frames, frames[:, 0], True, w, h,
-                          max_performance=True, classes=classes)[2]
+    return _run_classes(frames, frames, frames[:, 0], True, w, h, True,
+                        classes)[0]
 
 
 def timed(fn, device: torch.device, repeats: int,
