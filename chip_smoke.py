@@ -45,8 +45,10 @@ said otherwise:
   filtered full report, whose bands meet at a filtered halo row) against
   MipCostEngine on the edge-padded and on the true frames; the latency
   engine on one frame with 1 part and with 4 parts on 4 streams, both
-  regimes; the CLI's latency path, which reads back through the pinned
-  readback ring, and two CLI processes (gloo on localhost) with (e)'s
+  regimes, each also read through a readback ring as the CLI's
+  --LatencyMode step reads it (one part: each SizeId's block of columns
+  copied while the next SizeId searches); the CLI's latency path, which
+  reads back through the pinned readback ring, and two CLI processes (gloo on localhost) with (e)'s
   flags, whose CSVs must equal (e)'s byte for byte (then all are
   deleted); the JAX package's two multi-process cases at 256x192 (one
   process owning no frame under a filter and a target CTU; 3 frames over
@@ -107,9 +109,10 @@ said otherwise:
   target CTU's POC-0 rows against the golden model's export (byte for
   byte on in-frame CUs); (m.6) the CLI's --LatencyMode on one frame
   against MipCostEngine's export; (m.7) the sharded engine (1, 2)
-  filtered and (2, 2) on 4 frames, and the latency engine with 4 parts
-  in both regimes, against MipCostEngine; (m.8) the inspect readback at
-  the bottom-right, bottom-left and an interior CTU; then, the pool
+  filtered and (2, 2) on 4 frames, and the latency engine with 1 and 4
+  parts in both regimes, called and through the ring, against
+  MipCostEngine, and the one-part ring path against the golden model;
+  (m.8) the inspect readback at the bottom-right, bottom-left and an interior CTU; then, the pool
   gone, (m.9) the main path timed beside its 17 kernels and their
   bounds, the filter kernel on a batch of 16 (FILTER) beside its bound
   and its plain version, and the port's bench at 4K with --latency and
@@ -120,8 +123,9 @@ said otherwise:
   golden model's: the golden model (golden/reference_model.py), its 47
   groups a frame on a spawned process pool while the card works, against
   (k.1a) the main path's own minSadHad of frame 0, (k.1b) the full report
-  of frame 0 (launches 1 / 7 / 9) and (k.2) the full report of a smooth
-  frame filtered on the card, the golden model fed by
+  of frame 0 (launches 1 / 7 / 9), (k.1d) the CLI's latency path in
+  SizeId parts on frame 0 (both regimes) and (k.2) the full report of a
+  smooth frame filtered on the card, the golden model fed by
   golden/filters_golden.py; the scalar oracle (golden/scalar_oracle.py)
   against (k.3) 1128 (CU, mode) entries of phase (i)'s two 3840x2160
   frames (every group: the top-left CTU, the top row, the left and the
@@ -874,11 +878,15 @@ def latency_checks(frame: np.ndarray, width: int, height: int,
     n streams) for each n of ``parts``, max-performance on the original
     samples and the full report on the filtered reference: whole tensors
     against MipCostEngine(frame), one launch per class in all, the costs
-    on the host.  Returns {(n, max_performance): engine}."""
+    on the host; then the same through a readback ring, as the CLI's
+    --LatencyMode step reads (with one part each SizeId's columns copied
+    while the next SizeId searches; with several, one copy after the
+    gather).  Returns {(n, max_performance): engine}."""
     from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
     from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
     from vvc_mip_gpu_tpu_torch.parallel.latency_engine import (
-        LatencyMipCostEngine)
+        LatencyMipCostEngine, PartedFrame)
+    from vvc_mip_gpu_tpu_torch.utils.readback import ReadbackRing
 
     filtered = filter_frames(torch.from_numpy(frame)[None].to(dev),
                              *FILTER)[0].cpu().numpy()
@@ -890,20 +898,60 @@ def latency_checks(frame: np.ndarray, width: int, height: int,
             engine = LatencyMipCostEngine(width, height, [dev] * n_parts,
                                           max_performance=mp)
             engines[n_parts, mp] = engine
-            got, launches = count_launches(lambda: engine(frame, ref))
-            bad = differing(got, want, fields)
-            if launches != [1, 7, 9]:
-                bad.append(f"launches {launches}, want [1, 7, 9]")
-            if got.min_sad_had.device.type != "cpu":
-                bad.append("costs not on the host")
+            ring = ReadbackRing()
             label = (f"{width}x{height} {n_parts} part(s), "
                      f"{'max-performance' if mp else 'filtered full report'}")
-            if bad:
-                failures.append(f"latency {label}: {bad}")
-            print(f"check latency {label}: launches {launches}; whole "
-                  f"tensors vs MipCostEngine(frame): "
-                  f"{'bit-exact' if not bad else bad}", flush=True)
+            engaged = []
+
+            def through_ring():
+                outs = engine.dispatch(frame, ref, ring)
+                engaged.append(isinstance(outs, PartedFrame))
+                return engine.assemble(outs, ring.read)
+
+            for how, call in (("call", lambda: engine(frame, ref)),
+                              ("ring", through_ring)):
+                got, launches = count_launches(call)
+                bad = differing(got, want, fields)
+                if launches != [1, 7, 9]:
+                    bad.append(f"launches {launches}, want [1, 7, 9]")
+                if got.min_sad_had.device.type != "cpu":
+                    bad.append("costs not on the host")
+                if how == "ring" and engaged != [n_parts == 1]:
+                    bad.append(f"SizeId parts engaged: {engaged}")
+                if bad:
+                    failures.append(f"latency {label} ({how}): {bad}")
+                parted = how == "ring" and engaged == [True]
+                print(f"check latency {label} ({how}"
+                      f"{', SizeId parts' if parted else ''}): "
+                      f"launches {launches}; whole tensors vs "
+                      f"MipCostEngine(frame): "
+                      f"{'bit-exact' if not bad else bad}", flush=True)
     return engines
+
+
+def latency_ring_golden(frame: np.ndarray, width: int, height: int,
+                        dev: torch.device, golden: dict, label: str) -> list:
+    """The CLI's --LatencyMode step on one card (the one-part latency
+    engine read through a readback ring in SizeId parts) on ``frame``'s
+    original samples, full report and max-performance, against the golden
+    model's costs of that frame (valid CUs, masks equal).  Returns what
+    differs."""
+    from vvc_mip_gpu_tpu_torch.parallel.latency_engine import (
+        LatencyMipCostEngine)
+    from vvc_mip_gpu_tpu_torch.utils.readback import ReadbackRing
+
+    bad = []
+    ring = ReadbackRing()
+    for mp in (False, True):
+        engine = LatencyMipCostEngine(width, height, [dev],
+                                      max_performance=mp)
+        got = engine.assemble(engine.dispatch(frame, None, ring), ring.read)
+        fields = ("min_sad_had",) if mp else ("sad", "satd", "min_sad_had")
+        bad += golden_differences(
+            f"{label} {width}x{height} the latency path in SizeId parts, "
+            f"{'max-performance' if mp else 'full report'}", golden,
+            {f: getattr(got, f) for f in fields}, got.valid)
+    return bad
 
 
 def phase_latency(frame: np.ndarray, dev: torch.device, card: str,
@@ -1986,9 +2034,9 @@ def phase_uhd_entry_points(tmp: str, dev: torch.device, card: str,
     bottom-right CTU as target, each decisions CSV deleted once compared
     (too little free space in ``tmp`` is a failure); (m.6) the CLI's
     --LatencyMode on one frame; (m.7) sharded_checks on the (2, 2) and
-    (1, 2) meshes over UHD_MESH_FRAMES frames and latency_checks with 4
-    parts; (m.8) inspect_cases at the bottom-right, bottom-left and an
-    interior CTU.  Then the golden comparisons (valid CUs, masks equal)
+    (1, 2) meshes over UHD_MESH_FRAMES frames and latency_checks with 1
+    and 4 parts, the one-part ring path against the golden model; (m.8)
+    inspect_cases at the bottom-right, bottom-left and an interior CTU.  Then the golden comparisons (valid CUs, masks equal)
     and the target CTU's POC-0 rows against the golden model's export;
     then, the pool gone, (m.9) size_timings at batch 16 and the bench in
     UHD_BENCH_RUNS.  Returns the timings."""
@@ -2046,7 +2094,7 @@ def phase_uhd_entry_points(tmp: str, dev: torch.device, card: str,
                        costs["main"].min_sad_had[:UHD_MESH_FRAMES], UHD_W,
                        UHD_H, ((2, 2, True), (1, 2, False)), bad)
         del mesh_frames
-        latency_checks(noise, UHD_W, UHD_H, dev, (4,), bad)
+        latency_checks(noise, UHD_W, UHD_H, dev, (1, 4), bad)
         filtered = filter_frames(torch.from_numpy(cli0.astype(np.int32))[
             None].to(dev), *FILTER)[0]
         interior = (rows // 2) * cols + cols // 2
@@ -2077,6 +2125,8 @@ def phase_uhd_entry_points(tmp: str, dev: torch.device, card: str,
         f"report", golden["cli"],
         {f: getattr(costs[FILTER], f)[0] for f in full},
         costs[FILTER].valid[0])
+    bad += latency_ring_golden(noise, UHD_W, UHD_H, dev, golden["noise"],
+                               "(m.7)")
     if prefix is not None:
         bad += [f"(m.5) {d}" for d in target_golden_differences(
             f"{prefix}target_ctu{target}.csv", golden["cli"], UHD_W, target,
@@ -2200,6 +2250,8 @@ def phase_golden(frames: torch.Tensor, main_costs, card: str,
         golden["smooth filtered"],
         {"sad": smooth_full.sad[0], "satd": smooth_full.satd[0],
          "min_sad_had": smooth_full.min_sad_had[0]}, smooth_full.valid[0])
+    bad += latency_ring_golden(noise.astype(np.int32), MAIN_W, MAIN_H, dev,
+                               golden["noise"], "(k.1d)")
     hd_golden = [(golden["noise"][s[2]].sad[s[1], s[3], s[6]],
                   golden["noise"][s[2]].satd[s[1], s[3], s[6]],
                   golden["noise"][s[2]].min_sad_had[s[1], s[3], s[6]])

@@ -6,7 +6,11 @@ chunk's readback is done write the files of a one-chunk run byte for
 byte; the latency engine's own results are the caller's.  The part plan
 of the CLI's step, a read in parts filling its rows and keeping the
 two-slot contract, the CPU step in one pass, and (on the card) the
-parted step bit-exact against the one-pass step."""
+parted step bit-exact against the one-pass step.  The latency engine's
+SizeId parts: their blocks of columns, a read in blocks of columns, the
+CLI's latency step with the ring against the engine's own call, the
+blocks' copies under a profiler, and (on the card) the step in SizeId
+parts bit-exact against ``compute_batch``."""
 
 import contextlib
 import filecmp
@@ -22,8 +26,11 @@ from vvc_mip_gpu_tpu_torch import cli as tcli
 from vvc_mip_gpu_tpu_torch.constants import num_ctus
 from vvc_mip_gpu_tpu_torch.io import export as texport
 from vvc_mip_gpu_tpu_torch.io.frames import synthetic_frames
-from vvc_mip_gpu_tpu_torch.models.cost_engine import MipCostEngine
+from vvc_mip_gpu_tpu_torch.models import cost_engine as tce
+from vvc_mip_gpu_tpu_torch.models.cost_engine import PER_CTU, MipCostEngine
 from vvc_mip_gpu_tpu_torch.ops.filters import filter_frames
+from vvc_mip_gpu_tpu_torch.ops.geometry import class_plans
+from vvc_mip_gpu_tpu_torch.parallel import latency_engine as tlat
 from vvc_mip_gpu_tpu_torch.parallel.latency_engine import LatencyMipCostEngine
 from vvc_mip_gpu_tpu_torch.utils import readback, timing
 from vvc_mip_gpu_tpu_torch.utils.config import EngineConfig
@@ -325,5 +332,226 @@ def test_part_spans_time_the_copies_on_the_card(width, height, chunk):
         read(enqueue(frames, None, list(range(chunk))), chunk)
     copies = timing.device_ms("readback.part")
     assert len(copies) == len(parts) and all(ms > 0 for ms in copies)
+    assert len(timing.spans("readback.read")) == 1
+    timing.clear()
+
+
+@pytest.mark.parametrize("width, height", SIZES)
+def test_size_parts_cover_every_column_once(width, height):
+    """The latency engine's SizeId parts: SizeId 0, 1 and 2 in that order,
+    each with every class of its SizeId and one block of columns holding
+    exactly the columns its classes write; the three blocks tile the
+    97840 columns."""
+    plans = class_plans(width, height)
+    parts = tlat.size_parts(width, height)
+    assert [{plans[i].shape.size_id for i in classes}
+            for classes, _ in parts] == [{0}, {1}, {2}]
+    assert sorted(i for classes, _ in parts for i in classes) == list(
+        range(len(plans)))
+    seen = np.zeros(PER_CTU, int)
+    for classes, cols in parts:
+        written = np.zeros(PER_CTU, bool)
+        for c in tce._columns(width, height, classes):
+            written[c] = True
+        assert np.flatnonzero(written).tolist() == list(
+            range(cols.start, cols.stop))
+        seen[cols] += 1
+    assert (seen == 1).all()
+
+
+def test_read_in_blocks_of_columns_keeps_the_rest_and_two_slots():
+    """Blocks of columns (views of wider tensors) land in their columns
+    of the next slot and nothing else there changes; the read's arrays
+    stay until the slot comes round again."""
+    ring = ReadbackRing()
+    sentinel = torch.full((1, 3, 10), -1, dtype=torch.int32)
+    ring.read(sentinel, sentinel)  # slot 0, as a whole read left it
+    ring.read(sentinel + 1)  # slot 1
+    a = torch.arange(3 * 10, dtype=torch.int32).view(1, 3, 10)
+    pending = ring.parted(10)
+    pending.copy_columns(6, a[..., 6:10], None)
+    pending.copy_columns(0, a[..., 0:2], None)
+    first, none = pending.read()
+    assert none is None and first.shape == (1, 3, 10)
+    want = np.full((1, 3, 10), -1, np.int32)
+    want[..., :2] = a.numpy()[..., :2]
+    want[..., 6:] = a.numpy()[..., 6:]
+    np.testing.assert_array_equal(first, want)
+    second, = ring.read(a + 10)
+    np.testing.assert_array_equal(first, want)  # the other slot
+    pending = ring.parted(10)
+    pending.copy_columns(0, (a + 20)[..., :10].contiguous(), None)
+    third, _ = pending.read()
+    assert np.shares_memory(first, third)  # slot 0 again
+    np.testing.assert_array_equal(third, a.numpy() + 20)
+    np.testing.assert_array_equal(second, a.numpy() + 10)
+
+
+def _latency_inputs(filtered):
+    frames = torch.from_numpy(synthetic_frames(
+        2, 128, 128, seed=8).astype(np.int32))
+    refs = filter_frames(frames, *FILTER) if filtered else None
+    return frames, refs
+
+
+@pytest.mark.parametrize("max_performance, filtered",
+                         [(True, False), (False, True)])
+def test_latency_step_with_the_ring_equals_the_engines_call(
+        max_performance, filtered, monkeypatch):
+    """The CLI's --LatencyMode step on the CPU (one frame a chunk, the
+    ring handed to ``dispatch``) returns [1, nCTU, 97840] arrays equal to
+    ``LatencyMipCostEngine.__call__``'s; on the CPU the engine reads the
+    frame in one copy after its search."""
+    monkeypatch.setenv("VVC_MIP_PLATFORM", "cpu")
+    frames, refs = _latency_inputs(filtered)
+    ft, ki = FILTER if filtered else (None, 0)
+    cfg = EngineConfig(width=128, height=128, n_frames=2, filter_type=ft,
+                       kernel_idx=ki, max_performance=max_performance,
+                       latency_mode=True)
+    _, enqueue, read = tcli._searcher(cfg, torch.device("cpu"), 2)
+    engine = LatencyMipCostEngine(128, 128, [torch.device("cpu")],
+                                  max_performance=max_performance)
+    assert engine._size_parts is None
+    for k in range(2):
+        outs = enqueue(frames, refs, [k])
+        assert isinstance(outs, list)
+        got = read(outs, 1)
+        want = engine(frames[k], None if refs is None else refs[k])
+        for a, t in zip(got, (want.min_sad_had, want.sad, want.satd)):
+            assert (a is None) == (t is None)
+            if a is not None:
+                assert a.shape == (1, *t.shape)
+                np.testing.assert_array_equal(a[0], t.numpy())
+
+
+@pytest.mark.parametrize("max_performance, filtered",
+                         [(True, False), (False, True)])
+def test_size_id_parts_copy_each_block_once(max_performance, filtered,
+                                            monkeypatch):
+    """The one-part engine made to search in SizeId parts (as on a card)
+    on the CPU, under a profiler: the classes run SizeId 0, 1, 2, one
+    ``readback.part`` a SizeId inside ``latency.dispatch``, one
+    ``readback.read`` and one ``latency.gather`` inside
+    ``latency.assemble``, the full report's minSadHad formed a block at a
+    time by ``_combine``, and the costs equal the engine's own call."""
+    frames, refs = _latency_inputs(filtered)
+    engine = LatencyMipCostEngine(128, 128, [torch.device("cpu")],
+                                  max_performance=max_performance)
+    want = engine(frames[0], None if refs is None else refs[0])
+    engine._size_parts = tlat.size_parts(128, 128)
+    searched, combined = [], []
+    run_classes, combine = tce._run_classes, tce._combine
+
+    def recording(*args, **kwargs):
+        searched.append(args[7])
+        return run_classes(*args, **kwargs)
+
+    def counting(*args, **kwargs):
+        combined.append(args[0].shape[-1])
+        return combine(*args, **kwargs)
+
+    monkeypatch.setattr(tce, "_run_classes", recording)
+    monkeypatch.setattr(tce, "_combine", counting)
+    ring = ReadbackRing()
+    timing.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        outs = engine.dispatch(frames[0], None if refs is None else refs[0],
+                               ring)
+        assert isinstance(outs, tlat.PartedFrame)
+        got = engine.assemble(outs, ring.read)
+    plans = class_plans(128, 128)
+    assert [{plans[i].shape.size_id for i in classes}
+            for classes in searched] == [{0}, {1}, {2}]
+    widths = [c.stop - c.start for _, c in engine._size_parts]
+    assert combined == ([] if max_performance else widths)
+    dispatch, = timing.spans("latency.dispatch")
+    assemble, = timing.spans("latency.assemble")
+    parts = timing.spans("readback.part")
+    assert len(parts) == 3
+    for inner, outer in ([(p, dispatch) for p in parts]
+                         + [(s, assemble) for s in timing.spans()
+                            if s.name in ("readback.read",
+                                          "latency.gather")]):
+        assert outer.start_ns <= inner.start_ns <= inner.end_ns <= outer.end_ns
+    assert len(timing.spans("readback.read")) == 1
+    assert len(timing.spans("latency.gather")) == 1
+    timing.clear()
+    for field in ("sad", "satd", "min_sad_had"):
+        w, g = getattr(want, field), getattr(got, field)
+        assert (w is None) == (g is None)
+        if w is not None:
+            assert torch.equal(g, w), field
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA device")
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("max_performance", [True, False])
+def test_latency_step_in_size_id_parts_is_bit_exact_on_the_card(
+        n_parts, max_performance):
+    """The CLI's --LatencyMode step on the card at 1920x1080 (one part:
+    SizeId parts, each block copied while the next searches; two parts on
+    two streams: one copy after the gather), original and filtered
+    references, returns the host arrays of ``compute_batch``'s costs; a
+    second read leaves the first's arrays, a third reuses their slot."""
+    device = torch.device("cuda")
+    width, height = 1920, 1080
+    pool = torch.from_numpy(np.random.default_rng(n_parts).integers(
+        0, 1024, (3, height, width), dtype=np.int32)).to(device)
+    filtered = filter_frames(pool, *FILTER)
+    engine = LatencyMipCostEngine(width, height, [device] * n_parts,
+                                  max_performance=max_performance)
+    batch = MipCostEngine(width, height, max_performance=max_performance,
+                          device=device)
+    ring = ReadbackRing()
+    for refs in (None, filtered):
+        def step(k):
+            outs = engine.dispatch(pool[k],
+                                   None if refs is None else refs[k], ring)
+            assert isinstance(outs, tlat.PartedFrame) == (n_parts == 1)
+            c = engine.assemble(outs, ring.read)
+            return [None if t is None else t.numpy()
+                    for t in (c.min_sad_had, c.sad, c.satd)]
+
+        def want(k):
+            c = batch.compute_batch(pool[k:k + 1],
+                                    None if refs is None else refs[k:k + 1])
+            return [None if t is None else t[0]
+                    for t in (c.min_sad_had, c.sad, c.satd)]
+
+        first = step(0)
+        _assert_equal_on(device, first, want(0))
+        second = step(1)
+        _assert_equal_on(device, second, want(1))
+        _assert_equal_on(device, first, want(0))
+        third = step(2)
+        _assert_equal_on(device, third, want(2))
+        assert all(a is None or np.shares_memory(a, b)
+                   for a, b in zip(first, third))
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA device")
+def test_size_id_copies_are_timed_on_the_card():
+    """Under a profiler the CLI's --LatencyMode step on one card records
+    three ``readback.part`` spans a frame, each with a time on the card,
+    and one ``readback.read``."""
+    device = torch.device("cuda")
+    cfg = EngineConfig(width=1920, height=1080, n_frames=1,
+                       max_performance=True, latency_mode=True)
+    _, enqueue, read = tcli._searcher(cfg, device, 1)
+    frames = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 1024, (1, 1080, 1920), dtype=np.int16)).to(device)
+    read(enqueue(frames, None, [0]), 1)  # warm
+    timing.clear()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        read(enqueue(frames, None, [0]), 1)
+    copies = timing.device_ms("readback.part")
+    assert len(copies) == 3 and all(ms > 0 for ms in copies)
     assert len(timing.spans("readback.read")) == 1
     timing.clear()

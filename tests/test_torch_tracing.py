@@ -303,6 +303,35 @@ def test_readback_overlap_reader(monkeypatch):
     assert read(types.SimpleNamespace(entry="engine_batch")) is None
 
 
+def test_readback_parts_reader(monkeypatch):
+    """``readback_parts_per_frame``: the stretch's ``readback.part`` spans
+    over its ``readback.read`` spans, in cli_latency cells only, and
+    nothing where the program recorded no part (a frame read back in one
+    copy) or no read."""
+    read = harness.reader("readback_parts_per_frame")
+    own = types.SimpleNamespace(entry="cli_latency")
+    assert read(own) is None  # no record
+    monkeypatch.setattr(program_spans, "PAUSE_S", 0.05)
+    with _profiled():  # a warm-up step of another shape
+        with timing.span("readback.part"):
+            time.sleep(0.01)
+        with timing.span("readback.read"):
+            pass
+    time.sleep(0.1)
+    with _profiled():
+        for _ in range(2):
+            with timing.span("readback.read"):
+                pass
+    assert read(own) is None  # reads, but no part
+    with _profiled():
+        for _ in range(6):
+            with timing.span("readback.part"):
+                pass
+    assert read(own) == 3.0
+    for entry in ("cli_step", "engine_batch"):
+        assert read(types.SimpleNamespace(entry=entry)) is None
+
+
 def test_stretch_is_after_the_last_pause(monkeypatch):
     """Records from the last pause longer than ``PAUSE_S`` on: a pause is
     measured from the latest end so far, so a span that outlasts those

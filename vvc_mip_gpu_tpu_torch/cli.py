@@ -199,7 +199,12 @@ def _searcher(cfg: EngineConfig, device: torch.device, n_pending: int):
     only the last part's copy stands after the search.  On the CPU, and
     for a chunk too small for two parts, ``enqueue`` searches the chunk
     in one pass and ``read`` copies it with ``ReadbackRing.read``: on the
-    CPU a copy runs on the calling thread, so nothing could overlap it."""
+    CPU a copy runs on the calling thread, so nothing could overlap it.
+    In --LatencyMode on one CUDA card ``enqueue`` hands the ring to the
+    latency engine's ``dispatch``, which copies each SizeId's block of
+    columns to the pinned slot while the next SizeId searches
+    (``LatencyMipCostEngine.dispatch``); ``read`` returns the slot's
+    arrays."""
     true_n = num_ctus(cfg.width, cfg.height)[2]
     ring = ReadbackRing()
 
@@ -216,7 +221,8 @@ def _searcher(cfg: EngineConfig, device: torch.device, n_pending: int):
 
         def enqueue(frames, refs, pocs):  # one frame a chunk
             return engine.dispatch(frames[pocs[0]],
-                                   None if refs is None else refs[pocs[0]])
+                                   None if refs is None else refs[pocs[0]],
+                                   ring)
 
         def read(outs, n):
             costs = engine.assemble(outs, ring.read)

@@ -3,9 +3,10 @@
 ``nvcc`` compiles each CUDA source of ``csrc/`` for Hopper (``sm_90a``)
 into a shared library of its own with a plain C interface, which
 ``ctypes`` loads: ``mip_cost`` (the cost kernels), ``mip_pred`` (the
-reduced prediction) and ``mip_filter`` (the low-pass filters).  The host
-C compiler (``cc``) builds the one C source, ``io_native`` (the CSV
-reader and writers of ``io/native.py``), without ``-ffast-math``.  A
+reduced prediction), ``mip_filter`` (the low-pass filters) and
+``mip_readback`` (the readback ring's pitched copy of column blocks).
+The host C compiler (``cc``) builds the one C source, ``io_native`` (the
+CSV reader and writers of ``io/native.py``), without ``-ffast-math``.  A
 library is built at first use, into ``build/`` inside the package (listed
 in .gitignore), under a name that carries a hash of its source, the
 headers it may include and the flags, so an edited or added source is
@@ -30,7 +31,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-LIBRARIES = ("mip_cost", "mip_pred", "mip_filter")  # one per csrc/<name>.cu
+LIBRARIES = ("mip_cost", "mip_pred", "mip_filter",
+             "mip_readback")  # one per csrc/<name>.cu
 HOST_LIBRARIES = ("io_native",)  # one per csrc/<name>.c
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

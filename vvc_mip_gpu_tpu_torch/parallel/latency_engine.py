@@ -22,9 +22,19 @@ total (the 8x8 class, ~18% of frame ops at 1080p).
 The partition weighs the classes by their analytic element-op counts
 (the op model: diff, SAD, butterflies and SATD per sample per mode, plus
 the upsampling and the prediction epilogue).
+
+With one part on a CUDA card and a readback ring to read into, the frame's
+52.8 MB (1080p) need not wait for the last class: ``dispatch`` searches
+the classes SizeId by SizeId (``size_parts``: each SizeId writes one
+contiguous block of columns), and hands each block to the ring's copy
+stream as soon as its launches are enqueued, so the link carries one block
+while the next SizeId searches.  SizeId 0 goes first: the 4x4 class is a
+third of the bytes and a twentieth of the search.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,11 +42,13 @@ import torch
 from vvc_mip_gpu_tpu_torch.constants import num_ctus, shape_classes
 from vvc_mip_gpu_tpu_torch.models import cost_engine
 from vvc_mip_gpu_tpu_torch.models.cost_engine import (
+    PER_CTU,
     FrameCosts,
     _columns,
     _validity_mask,
     as_frames,
 )
+from vvc_mip_gpu_tpu_torch.ops.geometry import class_plans
 from vvc_mip_gpu_tpu_torch.parallel.mesh import (
     fork,
     join,
@@ -44,6 +56,7 @@ from vvc_mip_gpu_tpu_torch.parallel.mesh import (
     shard_stream,
     visible_devices,
 )
+from vvc_mip_gpu_tpu_torch.utils.readback import PartedRead, ReadbackRing
 from vvc_mip_gpu_tpu_torch.utils.timing import span
 
 
@@ -77,6 +90,34 @@ def partition_classes(n_parts: int,
     return [tuple(sorted(p)) for p in parts]
 
 
+def size_parts(width: int,
+               height: int) -> list[tuple[tuple[int, ...], slice]]:
+    """The classes of each SizeId (indices into ``class_plans``), SizeId 0
+    first, each with the one block of columns of the strided layout that
+    their groups write.  Raises where a SizeId's columns are not one
+    contiguous block."""
+    plans = class_plans(width, height)
+    out = []
+    for size_id in sorted({p.shape.size_id for p in plans}):
+        classes = tuple(i for i, p in enumerate(plans)
+                        if p.shape.size_id == size_id)
+        cols = sorted(_columns(width, height, classes),
+                      key=lambda c: c.start)
+        if any(a.stop != b.start for a, b in zip(cols, cols[1:])):
+            raise ValueError(f"SizeId {size_id}'s columns are not one block")
+        out.append((classes, slice(cols[0].start, cols[-1].stop)))
+    return out
+
+
+class PartedFrame(NamedTuple):
+    """What ``dispatch`` returns where the frame's costs go to a readback
+    ring SizeId by SizeId: the part's stream, and the read its copies
+    fill."""
+
+    stream: torch.cuda.Stream
+    read: PartedRead
+
+
 class LatencyMipCostEngine:
     """Single-frame, multi-device cost search (latency mode).
 
@@ -104,17 +145,26 @@ class LatencyMipCostEngine:
         # classes
         self._parts = [(dev, p, shard_stream(dev), _columns(width, height, p))
                        for dev, p in zip(devices, parts) if p]
+        # one part on a CUDA card: its search can run SizeId by SizeId,
+        # each block read back while the next searches
+        self._size_parts = (
+            size_parts(width, height) if len(self._parts) == 1
+            and self._parts[0][0].type == "cuda" else None)
         self._valid = torch.from_numpy(_validity_mask(width, height))
 
-    def dispatch(self, frame, ref_frame=None) -> list:
+    def dispatch(self, frame, ref_frame=None,
+                 ring: ReadbackRing | None = None):
         """Upload the frame (and reference) once per distinct device and
         enqueue every part's class subset on its stream; returns each
         part's (stream, outputs): ``_run_classes``' ``[msh]`` or ``[sad,
         satd]``, each [1, nCTU, 97840], still on the devices.  Pair with
         :meth:`assemble`; callers that want stage-accurate timing (e.g.
-        the CLI's ENQUEUE/READ split) use the pair.  Spans
-        ``latency.dispatch``, and ``latency.upload`` for each device's
-        copies."""
+        the CLI's ENQUEUE/READ split) use the pair.  With ``ring`` and one
+        part on a CUDA card, the part searches SizeId by SizeId and each
+        block of columns is copied into a read of ``ring`` while the next
+        SizeId searches; a ``PartedFrame`` comes back.  Spans
+        ``latency.dispatch``, ``latency.upload`` for each device's copies,
+        and ``readback.part`` for each block's copy."""
         with span("latency.dispatch"):
             frame = as_frames(frame)
             ref_frame = None if ref_frame is None else as_frames(ref_frame)
@@ -129,11 +179,32 @@ class LatencyMipCostEngine:
                 fd, rd = uploaded[dev]  # rd is fd in the shared regime
                 fork(stream, fd, rd)
                 with on_stream(stream):
+                    if ring is not None and self._size_parts is not None:
+                        # the engine's one part
+                        return PartedFrame(stream, self._search_in_parts(
+                            fd, rd, ring.parted(PER_CTU)))
                     fields = cost_engine._run_classes(
                         fd, rd, rd[:, 0], True, self.width, self.height,
                         self.max_performance, classes)
                 outs.append((stream, fields))
             return outs
+
+    def _search_in_parts(self, fd, rd, pending: PartedRead) -> PartedRead:
+        """Every class, SizeId by SizeId on the current stream, each
+        SizeId's block of columns handed to ``pending`` once its launches
+        are enqueued: ``[msh]``, or ``[sad, satd, msh]`` with minSadHad
+        formed over the block (``cost_engine._combine``)."""
+        share_ref = rd is fd
+        fd = cost_engine._as_samples(fd)  # cast once, not once a SizeId
+        rd = fd if share_ref else cost_engine._as_samples(rd)
+        for classes, cols in self._size_parts:
+            fields = [t[..., cols] for t in cost_engine._run_classes(
+                fd, rd, rd[:, 0], True, self.width, self.height,
+                self.max_performance, classes)]
+            if not self.max_performance:
+                fields.append(cost_engine._combine(*fields))
+            pending.copy_columns(cols.start, *fields)
+        return pending
 
     def gather(self, outs) -> list[torch.Tensor]:
         """The device step of :meth:`assemble`: the first part's outputs
@@ -159,13 +230,20 @@ class LatencyMipCostEngine:
         """Gather the parts' outputs on the first part's device and read
         them back (blocks until every part finishes).  ``read(*tensors)``:
         the readback, host arrays or tensors of the gathered fields (e.g.
-        ``ReadbackRing.read``); by default new host tensors.  FrameCosts
-        fields are [nCTU, 97840] host tensors.  Span
-        ``latency.assemble``."""
+        ``ReadbackRing.read``); by default new host tensors.  A
+        ``PartedFrame`` is already on its way to the ring: the current
+        stream joins the part's (span ``latency.gather``) and its read
+        returns the slot's arrays, ``read`` unused.  FrameCosts fields are
+        [nCTU, 97840] host tensors.  Span ``latency.assemble``."""
         with span("latency.assemble"):
-            fields = self.gather(outs)
-            host = ([t.cpu() for t in fields] if read is None
-                    else [torch.as_tensor(a) for a in read(*fields)])
+            if isinstance(outs, PartedFrame):
+                with span("latency.gather"):
+                    join(outs.stream)
+                host = [torch.as_tensor(a[0]) for a in outs.read.read()]
+            else:
+                fields = self.gather(outs)
+                host = ([t.cpu() for t in fields] if read is None
+                        else [torch.as_tensor(a) for a in read(*fields)])
             if self.max_performance:
                 host = [None, None, *host]
             return FrameCosts(*host, valid=self._valid)

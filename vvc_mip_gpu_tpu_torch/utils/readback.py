@@ -24,15 +24,25 @@ the next part.  The link (~55 GB/s) then runs beside the search in place
 of after it.  On the CPU a copy is a plain synchronous copy and there is
 nothing to overlap, so ``part_plan`` keeps a CPU chunk whole and its
 caller reads it with ``ReadbackRing.read``.
+
+A read can also arrive in blocks of columns (``PartedRead.copy_columns``):
+the latency engine searches one frame's classes SizeId by SizeId, and each
+SizeId writes one contiguous block of columns of the strided layout.  Each
+block is one pitched copy (``csrc/mip_readback.cu``) on the copy stream:
+torch's ``copy_`` into a column view of pinned memory goes through
+contiguous temporaries and a copy on the host, so it would not overlap.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
 import torch
 
+from vvc_mip_gpu_tpu_torch.ops import _build
 from vvc_mip_gpu_tpu_torch.utils.timing import span
 
 SLOTS = 2
@@ -112,8 +122,9 @@ class ReadbackRing:
         return tuple(None if b is None else b.numpy() for b in bufs)
 
     def parted(self, n: int) -> "PartedRead":
-        """A read of ``n`` frames that arrive in parts, into the next
-        slot."""
+        """A read that arrives in parts along one axis of length ``n``, into
+        the next slot: ``n`` frames copied by rows (``PartedRead.copy``),
+        or ``n`` columns copied in blocks (``PartedRead.copy_columns``)."""
         return PartedRead(self, self._take(), n)
 
     def _copy_stream(self, device: torch.device) -> torch.cuda.Stream:
@@ -124,8 +135,9 @@ class ReadbackRing:
 
 
 class PartedRead:
-    """One read of ring slot ``slot``, [n, ...] per field, filled part by
-    part: ``copy`` each part as soon as it is enqueued, then ``read``."""
+    """One read of ring slot ``slot``, filled part by part: ``copy`` each
+    part of [n, ...] fields (or ``copy_columns`` each block of [..., n]
+    fields) as soon as it is enqueued, then ``read``."""
 
     def __init__(self, ring: ReadbackRing, slot: int, n: int):
         self.ring = ring
@@ -158,6 +170,33 @@ class PartedRead:
                 if stream is not None:
                     t.record_stream(stream)
 
+    def copy_columns(self, c0: int, *blocks: torch.Tensor | None) -> None:
+        """Copy each block (None stays None), columns [..., k] of its field
+        (views of a wider tensor, any row pitch), into columns [c0, c0 + k)
+        of every row of the slot, whose fields are ``n`` columns wide; the
+        slot's other columns are left as they are.  On CUDA one pitched
+        copy a block on the ring's copy stream, ordered and kept alive as
+        in ``copy``.  Span ``readback.part``, timed on the copy stream."""
+        device = next(t.device for t in blocks if t is not None)
+        stream = None
+        if device.type == "cuda":
+            stream = self.stream = self.ring._copy_stream(device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+        if not self.bufs:
+            self.bufs = [None if t is None else self.ring._buffer(
+                self.slot, k, t, (*t.shape[:-1], self.n))
+                for k, t in enumerate(blocks)]
+        with torch.cuda.stream(stream), span("readback.part", device):
+            for buf, t in zip(self.bufs, blocks):
+                if t is None:
+                    continue
+                dst = buf[..., c0:c0 + t.shape[-1]]
+                if stream is None:
+                    dst.copy_(t)
+                    continue
+                _copy_columns_to_host(dst, t, stream)
+                t.record_stream(stream)
+
     def read(self) -> tuple[np.ndarray | None, ...]:
         """The slot's arrays, once every part's copy is done: the
         device's current stream waits for the copy stream, and is
@@ -169,3 +208,37 @@ class PartedRead:
                 current.wait_stream(self.stream)
                 current.synchronize()
         return tuple(None if b is None else b.numpy() for b in self.bufs)
+
+
+def _copy_columns_to_host(dst: torch.Tensor, src: torch.Tensor,
+                          stream: torch.cuda.Stream) -> None:
+    """Enqueue on ``stream`` the copy of the device block ``src`` into the
+    pinned host block ``dst``: equal shapes and dtypes, unit column
+    stride, the rows of each evenly pitched."""
+    if (src.shape != dst.shape or src.dtype != dst.dtype
+            or src.stride(-1) != 1 or dst.stride(-1) != 1):
+        raise ValueError(f"copy_columns: a {tuple(src.shape)} {src.dtype} "
+                         f"block into a {tuple(dst.shape)} {dst.dtype} one")
+    width = src.shape[-1]
+    src_rows, dst_rows = src.view(-1, width), dst.view(-1, width)
+    size = src.element_size()
+    with torch.cuda.device(src.device):
+        err = _copier()(dst_rows.data_ptr(),
+                        max(dst_rows.stride(0), width) * size,
+                        src_rows.data_ptr(),
+                        max(src_rows.stride(0), width) * size,
+                        width * size, src_rows.shape[0], stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"copy_columns: cudaMemcpy2DAsync failed with "
+                           f"error {err}")
+
+
+@functools.cache
+def _copier():
+    fn = _build.load_library("mip_readback").mip_copy_columns_to_host
+    fn.argtypes = (ctypes.c_void_p, ctypes.c_size_t,  # dst, its pitch
+                   ctypes.c_void_p, ctypes.c_size_t,  # src, its pitch
+                   ctypes.c_size_t, ctypes.c_size_t,  # width bytes, rows
+                   ctypes.c_void_p)  # stream
+    fn.restype = ctypes.c_int
+    return fn
